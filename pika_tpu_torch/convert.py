@@ -1,0 +1,95 @@
+"""Bridge from a flax variable tree of the JAX package to this package's
+modules.
+
+A flax tree ``{"params": ..., "batch_stats": ...}`` of numpy arrays maps onto
+a torch ``state_dict`` whose keys are the flax paths joined by dots, because
+the torch modules here carry the flax module names.  Layout rules:
+
+* Dense ``kernel`` (in, out)       -> Linear ``weight`` (out, in)
+* Conv ``kernel`` (k, in, out)     -> Conv1d ``weight`` (out, in, k)
+* Embed ``embedding`` (V+1, E)     -> Embedding ``weight`` (pad row V kept)
+* BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var``
+                                   -> ``weight``/``bias``/``running_mean``/``running_var``
+* LayerNorm ``scale``/``bias``     -> ``weight``/``bias``
+* LSTM ``l{k}_d0_wih`` (in, 4H), ``l{k}_d0_whh`` (H, 4H), ``l{k}_d0_b`` (4H,)
+                                   -> ``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}`` (4H, H),
+                                      ``bias_l{k}``; gate order i, f, g, o on both sides
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+_LSTM_KEY = re.compile(r"^l(\d+)_d(\d+)_(wih|whh|b)$")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _convert_node(path: str, node: dict, stats: dict | None, out: dict) -> None:
+    leaves = {k: v for k, v in node.items() if not isinstance(v, dict)}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _convert_node(f"{path}{k}.", v, (stats or {}).get(k), out)
+    if not leaves:
+        return
+    keys = set(leaves)
+    if "kernel" in keys and keys <= {"kernel", "bias"}:
+        kernel = np.asarray(leaves["kernel"])
+        if kernel.ndim == 2:
+            out[path + "weight"] = _t(kernel.T)
+        elif kernel.ndim == 3:
+            out[path + "weight"] = _t(kernel.transpose(2, 1, 0))
+        else:
+            raise ValueError(f"{path}kernel: unsupported rank {kernel.ndim}")
+        if "bias" in keys:
+            out[path + "bias"] = _t(leaves["bias"])
+    elif keys == {"embedding"}:
+        out[path + "weight"] = _t(leaves["embedding"])
+    elif keys == {"scale", "bias"}:
+        out[path + "weight"] = _t(leaves["scale"])
+        out[path + "bias"] = _t(leaves["bias"])
+        if stats is not None:  # BatchNorm
+            out[path + "running_mean"] = _t(stats["mean"])
+            out[path + "running_var"] = _t(stats["var"])
+            out[path + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    elif all(_LSTM_KEY.match(k) for k in keys):
+        for k, v in leaves.items():
+            layer, direction, kind = _LSTM_KEY.match(k).groups()
+            if direction != "0":
+                raise NotImplementedError(f"{path}{k}: bidirectional LSTM is not ported yet")
+            name = {"wih": "weight_ih", "whh": "weight_hh", "b": "bias"}[kind]
+            out[f"{path}{name}_l{layer}"] = _t(v.T if kind != "b" else v)
+    else:
+        raise ValueError(f"{path.rstrip('.')}: unrecognised flax leaves {sorted(keys)}")
+
+
+def state_dict_from_flax(variables_np: dict) -> dict:
+    """A torch state dict from a flax ``{"params", "batch_stats"}`` tree of
+    numpy arrays (``jax.tree.map(np.asarray, variables)``)."""
+    out: dict = {}
+    _convert_node("", variables_np["params"], variables_np.get("batch_stats"), out)
+    return out
+
+
+def load_flax_variables(module: nn.Module, variables_np: dict) -> nn.Module:
+    """Copy a flax variable tree into ``module``.  Raises unless every flax
+    leaf finds a tensor of the same shape and every tensor of the module is
+    covered."""
+    sd = state_dict_from_flax(variables_np)
+    expected = module.state_dict()
+    missing, unexpected = sorted(set(expected) - set(sd)), sorted(set(sd) - set(expected))
+    if missing or unexpected:
+        raise ValueError(f"flax tree does not match the module: missing {missing}, "
+                         f"unexpected {unexpected}")
+    bad = [f"{k}: {tuple(sd[k].shape)} vs {tuple(v.shape)}"
+           for k, v in expected.items() if sd[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"shape mismatch: {bad}")
+    module.load_state_dict(sd)
+    return module

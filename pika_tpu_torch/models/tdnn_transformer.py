@@ -1,0 +1,85 @@
+"""TDNN-Transformer transducer encoder, eval mode
+(port of ``pika_tpu/models/tdnn_transformer.py``).
+
+fc_in -> ReLU -> BN, then ``tdnn_layers`` VALID dilated time convolutions
+(dilations 1,1,1,3,...,3; stride 4 on the last), each followed by ReLU -> BN
+and, after every 3rd, a transformer layer (heads 16/16/8); then bn_final and
+fc_out.  Activations stay (B, T, C) at the module boundary; the convolutions
+run in torch's (B, C, T) layout inside.  BatchNorm uses its running stats.
+The encoder attends over padded frames too (no mask), as the JAX encoder does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from pika_tpu_torch.models.transformer import TransformerEncoderLayer
+
+BN_EPS = 1e-5
+
+
+def _conv_out_len(length, kernel: int, dilation: int, stride: int):
+    extent = (kernel - 1) * dilation + 1
+    return (length - extent) // stride + 1
+
+
+def _bn(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """BatchNorm over the channel axis of a (B, T, C) tensor."""
+    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+class TDNNTransformerEncoder(nn.Module):
+    def __init__(self, input_dim: int, output_dim: int, tdnn_nhid: int = 1024,
+                 tdnn_layers: int = 9, filter_size: int = 3,
+                 heads: Sequence[int] = (16, 16, 8), device=None):
+        super().__init__()
+        if tdnn_layers <= 4:
+            raise ValueError("tdnn_layers must be > 4")
+        self.tdnn_layers = tdnn_layers
+        self.filter_size = filter_size
+        nhid = tdnn_nhid
+        self.fc_in = nn.Linear(input_dim, nhid, device=device)
+        self.bn_in = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)
+        dil, stride = self._dilations_strides()
+        n_transformers = 0
+        for l, (d, s) in enumerate(zip(dil, stride)):
+            self.add_module(f"conv_{l}", nn.Conv1d(nhid, nhid, filter_size, stride=s,
+                                                   dilation=d, device=device))
+            self.add_module(f"bn_{l}", nn.BatchNorm1d(nhid, eps=BN_EPS, device=device))
+            if (l + 1) % 3 == 0 and n_transformers < len(heads):
+                self.add_module(f"transformer_{n_transformers}", TransformerEncoderLayer(
+                    nhid, heads[n_transformers], nhid * 4, device=device))
+                n_transformers += 1
+        self.n_transformers = n_transformers
+        self.bn_final = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)
+        self.fc_out = nn.Linear(nhid, output_dim, device=device)
+
+    def _dilations_strides(self):
+        dil = [1] * 3 + [3] * (self.tdnn_layers - 4) + [3]
+        stride = [1] * (self.tdnn_layers - 1) + [4]
+        return dil, stride
+
+    def output_length(self, in_len):
+        """Output frame count given input frames (ints or tensors)."""
+        dil, stride = self._dilations_strides()
+        out = in_len
+        for d, s in zip(dil, stride):
+            out = _conv_out_len(out, self.filter_size, d, s)
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("training mode (batch statistics, dropout) is not ported yet")
+        x = _bn(torch.relu(self.fc_in(x)), self.bn_in)
+        t_layer = 0
+        for l in range(self.tdnn_layers):
+            conv = getattr(self, f"conv_{l}")
+            x = torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
+            x = _bn(x, getattr(self, f"bn_{l}"))
+            if (l + 1) % 3 == 0 and t_layer < self.n_transformers:
+                x = getattr(self, f"transformer_{t_layer}")(x)
+                t_layer += 1
+        return self.fc_out(_bn(x, self.bn_final))

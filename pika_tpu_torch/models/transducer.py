@@ -1,0 +1,158 @@
+"""RNN-Transducer: TDNN-Transformer encoder + LSTM prediction net + gated,
+factorized joint (port of ``pika_tpu/models/transducer.py``, eval path).
+
+Joint:  h(t, u) = tanh(fc1_x x_t + fc1_y y_u) * sigmoid(gate_x x_t + gate_y y_u)
+        z(t, u) = W2 h(t, u) + b2
+with the first-layer biases on the y side only.  Blank = 0 doubles as SOS,
+prepended to the labels before the prediction net.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
+from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class TransducerConfig:
+    """Same fields and defaults as ``pika_tpu.models.TransducerConfig``;
+    ``Transducer`` rejects the values whose paths are not ported yet."""
+
+    input_dim: int
+    vocab_size: int          # labels 0..V-1, blank = 0
+    hid_dim: int = 512       # rnn_size / joint dim
+    encoder_type: str = "rnn"          # 'rnn' | 'tdnn_transformer'
+    decoder_type: str = "rnn"          # 'rnn' | 'transformer'
+    enc_layers: int = 2
+    dec_layers: int = 2
+    embd_dim: int = 300
+    dropout: float = 0.0
+    brnn: bool = False
+    tdnn_nhid: int = 1024
+    tdnn_layers: int = 9
+    tdnn_transformer_dropout: float = 0.2
+    remat: bool = False
+    attn_chunk: int = 0
+    attn_flash: bool = False
+    attn_cheap_dropout: bool = False
+    dec_d_model: int = 512
+    dec_heads: int = 8
+    dec_d_ff: int = 2048
+    simple_joint: bool = False
+
+    @property
+    def pad_id(self) -> int:
+        # the embedding has vocab_size+1 rows; the last one is padding
+        return self.vocab_size
+
+
+class Transducer(nn.Module):
+    def __init__(self, config: TransducerConfig, device=None):
+        super().__init__()
+        cfg = config
+        if cfg.encoder_type != "tdnn_transformer" or cfg.decoder_type != "rnn":
+            raise NotImplementedError(
+                f"encoder {cfg.encoder_type!r} / decoder {cfg.decoder_type!r}: only "
+                "tdnn_transformer + rnn is ported")
+        if cfg.attn_chunk or cfg.attn_flash or cfg.simple_joint:
+            raise NotImplementedError("attn_chunk, attn_flash and simple_joint are not ported yet")
+        self.config = cfg
+        h = cfg.hid_dim
+        self.encoder = TDNNTransformerEncoder(cfg.input_dim, h, cfg.tdnn_nhid,
+                                              cfg.tdnn_layers, device=device)
+        self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
+        self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, device=device)
+        self.fc1_x = nn.Linear(h, h, bias=False, device=device)
+        self.fc1_y = nn.Linear(h, h, device=device)
+        self.gate_x = nn.Linear(h, h, bias=False, device=device)
+        self.gate_y = nn.Linear(h, h, device=device)
+        self.fc2 = nn.Linear(h, cfg.vocab_size, device=device)
+
+    def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T, D) -> (B, T', H).  ``x_len`` is unused: the TDNN encoder
+        sees the padded frames, as the JAX encoder does."""
+        return self.encoder(x)
+
+    def encoder_out_len(self, x_len):
+        return self.encoder.output_length(x_len)
+
+    def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prediction net over labels with SOS prepended: (B, U) -> (B, U+1, H).
+        Positions at or past ``y_len + 1`` take the padding embedding row."""
+        pad_id = self.config.pad_id
+        y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
+        if y_len is not None:
+            pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
+            y_in = torch.where(pad_pos, pad_id, y_in)
+        out, _ = self.decoder(self.embed(y_in.clamp(0, pad_id).long()))
+        return out
+
+    def predict_step(self, y_tok: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
+        """One incremental prediction-net step: y_tok (B,), state = (h, c),
+        each (layers, B, H) -> (out (B, H), new_state)."""
+        emb = self.embed(y_tok.clamp(0, self.config.pad_id).long())
+        top, h, c = lstm_stack_step(self.decoder, emb, state[0], state[1])
+        return top, (h, c)
+
+    def joint_factors(self, enc_out: torch.Tensor, dec_out: torch.Tensor):
+        """(ax, gx) over T and (ay, gy) over U+1 for the fused loss."""
+        return (*self.joint_enc_factors(enc_out), *self.joint_dec_factors(dec_out))
+
+    def joint_enc_factors(self, enc_out: torch.Tensor):
+        return self.fc1_x(enc_out), self.gate_x(enc_out)
+
+    def joint_dec_factors(self, dec_hid: torch.Tensor):
+        return self.fc1_y(dec_hid), self.gate_y(dec_hid)
+
+    def joint_from_factors(self, ax, gx, ay, gy) -> torch.Tensor:
+        """Logits from the factors of aligned (t, u) pairs: (..., V)."""
+        return self.fc2(torch.tanh(ax + ay) * torch.sigmoid(gx + gy))
+
+    def joint_params(self):
+        """(W2 (H, V), b2 (V,)) of the output projection, in the JAX layout."""
+        return self.fc2.weight.t().contiguous(), self.fc2.bias
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=generator)
+    w.mul_(1.0 / (0.87962566103423978 * fan_in ** 0.5))  # flax's truncated lecun_normal
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init from ``generator``, in the distributions flax uses:
+    truncated LeCun normal for dense and conv kernels and the LSTM input
+    weights, orthogonal LSTM recurrent weights, normal(1/sqrt(E)) embeddings,
+    zero biases, identity norms and BatchNorm running stats (0, 1)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=generator)
+            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+                mod.reset_parameters()
+            elif isinstance(mod, LSTM):
+                for k in range(mod.num_layers):
+                    w_ih, w_hh, bias = mod.layer_params(k)
+                    _lecun_normal_(w_ih, w_ih.shape[1], generator)
+                    nn.init.orthogonal_(w_hh, generator=generator)
+                    bias.zero_()
+
+
+def init_transducer(cfg: TransducerConfig, generator: torch.Generator,
+                    device="cpu") -> Transducer:
+    """A ``Transducer`` on ``device`` with random weights drawn from
+    ``generator`` (which must live on the same device type), in eval mode."""
+    with torch.device("meta"):
+        model = Transducer(cfg)
+    model = model.to_empty(device=device)
+    init_parameters(model, generator)
+    return model.eval()

@@ -1,0 +1,89 @@
+"""Transformer blocks of the encoder, eval path
+(port of ``pika_tpu/models/transformer.py``).
+
+Attention follows the JAX package's numerics: q, k, v and the softmax
+probabilities are rounded to bf16 and the products accumulate in float32
+(there: bf16 einsums with a float32 result).  Here the rounded values are
+multiplied as float32, which is exact for bf16 inputs, so CPU and GPU agree
+with the JAX package up to summation order.  LayerNorm eps is 1e-6.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+LN_EPS = 1e-6
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+class MultiHeadedAttention(nn.Module):
+    """Scaled dot-product MHA; ``mask`` is (B, Tq, Tk) bool, True = disallow.
+
+    The query-chunked path, clipped relative positions and the flash kernel
+    of the JAX module are not ported yet.
+    """
+
+    def __init__(self, head_count: int, model_dim: int, device=None):
+        super().__init__()
+        self.head_count = head_count
+        self.model_dim = model_dim
+        self.linear_keys = nn.Linear(model_dim, model_dim, device=device)
+        self.linear_values = nn.Linear(model_dim, model_dim, device=device)
+        self.linear_query = nn.Linear(model_dim, model_dim, device=device)
+        self.final_linear = nn.Linear(model_dim, model_dim, device=device)
+
+    def forward(self, key, value, query, mask: Optional[torch.Tensor] = None):
+        h, dim = self.head_count, self.model_dim
+        d_head = dim // h
+        b, tq = query.shape[:2]
+
+        def split_heads(x):
+            return _bf16(x.reshape(x.shape[0], x.shape[1], h, d_head).transpose(1, 2))
+
+        k = split_heads(self.linear_keys(key))
+        v = split_heads(self.linear_values(value))
+        q = split_heads(self.linear_query(query))
+        q = q / torch.tensor(math.sqrt(d_head), dtype=torch.bfloat16)  # scaled after the cast
+        scores = q.float() @ k.float().transpose(-1, -2)
+        if mask is not None:
+            scores = scores.masked_fill(mask[:, None], -1e18)
+        attn = _bf16(torch.softmax(scores, dim=-1))
+        ctx = attn.float() @ v.float()
+        ctx = ctx.to(query.dtype).transpose(1, 2).reshape(b, tq, dim)
+        return self.final_linear(ctx)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """LN -> Linear(d_ff) -> ReLU -> Linear(d_model) -> +x."""
+
+    def __init__(self, d_model: int, d_ff: int, device=None):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.w_1 = nn.Linear(d_model, d_ff, device=device)
+        self.w_2 = nn.Linear(d_ff, d_model, device=device)
+
+    def forward(self, x):
+        return self.w_2(torch.relu(self.w_1(self.layer_norm(x)))) + x
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm self-attention block + FFN, eval mode (no dropout)."""
+
+    def __init__(self, d_model: int, heads: int, d_ff: int, device=None):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.self_attn = MultiHeadedAttention(heads, d_model, device=device)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, device=device)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        if self.training:
+            raise NotImplementedError("training mode (dropout) is not ported yet")
+        x_norm = self.layer_norm(x)
+        return self.feed_forward(self.self_attn(x_norm, x_norm, x_norm, mask=mask) + x)
