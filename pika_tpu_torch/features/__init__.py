@@ -1,4 +1,4 @@
-"""Feature extraction: Kaldi-semantics fbank, splice/stride and CMVN."""
+"""Feature extraction: Kaldi-semantics fbank, splice/stride, CMVN and SpecAugment."""
 
 from pika_tpu_torch.features.fbank import (
     FbankConfig,
@@ -6,4 +6,11 @@ from pika_tpu_torch.features.fbank import (
     make_fbank_fn,
     mel_banks_matrix,
 )
-from pika_tpu_torch.features.pipeline import apply_cmvn, splice, stride_subsample, strided_len
+from pika_tpu_torch.features.pipeline import (
+    apply_cmvn,
+    spec_augment,
+    spec_augment_mask,
+    splice,
+    stride_subsample,
+    strided_len,
+)

@@ -1,6 +1,5 @@
-"""Feature post-processing: splice, stride and CMVN
-(port of ``pika_tpu/features/pipeline.py``; SpecAugment is training-only and
-not ported yet)."""
+"""Feature post-processing: splice, stride, CMVN and SpecAugment
+(port of ``pika_tpu/features/pipeline.py``)."""
 
 from __future__ import annotations
 
@@ -49,3 +48,41 @@ def apply_cmvn(feats: torch.Tensor, offset: torch.Tensor, scale: torch.Tensor,
     if cmn:
         feats = feats - feats.mean(dim=-2, keepdim=True)
     return (feats + offset) * scale
+
+
+def spec_augment_mask(num_frames: int, num_bins: int, freq_span, time_span, freq_start,
+                      time_start) -> torch.Tensor:
+    """The (T, D) keep-mask of one frequency span and one time span: False on
+    bins [freq_start, freq_start + freq_span) and frames
+    [time_start, time_start + time_span).  Spans and starts are ints or 0-d
+    tensors (on the mask's device)."""
+    device = time_start.device if isinstance(time_start, torch.Tensor) else None
+    freq_idx = torch.arange(num_bins, device=device)
+    time_idx = torch.arange(num_frames, device=device)
+    freq_mask = (freq_idx >= freq_start) & (freq_idx < freq_start + freq_span)
+    time_mask = (time_idx >= time_start) & (time_idx < time_start + time_span)
+    return ~(freq_mask[None, :] | time_mask[:, None])
+
+
+def spec_augment(feats: torch.Tensor, max_freq_span: int, max_time_span: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """SpecAugment with one frequency span and one time span shared across
+    the batch: span widths uniform over [0, max], starts uniform over
+    [0, dim - span] inclusive (the JAX package's fix of the reference's
+    off-by-one, PARITY.md "Known deltas").  Draws stay on feats' device, so
+    there is no host sync."""
+    _, t, d = feats.shape
+    dev = feats.device
+
+    def draw_span(max_span):
+        return torch.randint(0, max_span + 1, (), generator=generator, device=dev)
+
+    def draw_start(dim, span):
+        hi = torch.clamp(dim - span + 1, min=1)  # starts in [0, hi)
+        u = torch.rand((), generator=generator, device=dev)
+        return torch.minimum((u * hi).long(), hi - 1)
+
+    freq_span, time_span = draw_span(max_freq_span), draw_span(max_time_span)
+    freq_start, time_start = draw_start(d, freq_span), draw_start(t, time_span)
+    keep = spec_augment_mask(t, d, freq_span, time_span, freq_start, time_start)
+    return feats * keep.to(feats.dtype)

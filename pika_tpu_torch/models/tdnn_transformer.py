@@ -1,23 +1,30 @@
-"""TDNN-Transformer transducer encoder, eval mode
+"""TDNN-Transformer transducer encoder
 (port of ``pika_tpu/models/tdnn_transformer.py``).
 
 fc_in -> ReLU -> BN, then ``tdnn_layers`` VALID dilated time convolutions
 (dilations 1,1,1,3,...,3; stride 4 on the last), each followed by ReLU -> BN
 and, after every 3rd, a transformer layer (heads 16/16/8); then bn_final and
 fc_out.  Activations stay (B, T, C) at the module boundary; the convolutions
-run in torch's (B, C, T) layout inside.  BatchNorm uses its running stats.
-The encoder attends over padded frames too (no mask), as the JAX encoder does.
+run in torch's (B, C, T) layout inside.  The encoder attends over padded
+frames too (no mask), as the JAX encoder does.
+
+BatchNorm follows flax's: in eval mode it uses the running statistics; in
+train mode it normalizes with the batch mean and the *biased* batch
+variance over (B, T) and updates ``ra = 0.9 ra + 0.1 stat`` with that same
+biased variance (``torch.nn.BatchNorm1d`` would use the unbiased one).  The
+transformer layers run with ``transformer_dropout`` in train mode.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from pika_tpu_torch.models.transformer import TransformerEncoderLayer
 
+BN_MOMENTUM = 0.9  # flax's momentum: the share of the old running statistic
 BN_EPS = 1e-5
 
 
@@ -27,14 +34,25 @@ def _conv_out_len(length, kernel: int, dilation: int, stride: int):
 
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
-    """BatchNorm over the channel axis of a (B, T, C) tensor."""
-    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    """BatchNorm over the channel axis of a (B, T, C) tensor, as flax's
+    ``nn.BatchNorm``; in train mode it also updates bn's running statistics
+    in place."""
+    if not bn.training:
+        return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    flat = x.reshape(-1, x.shape[-1])
+    mean = flat.mean(dim=0)
+    var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)  # flax's fast variance
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class TDNNTransformerEncoder(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, tdnn_nhid: int = 1024,
                  tdnn_layers: int = 9, filter_size: int = 3,
-                 heads: Sequence[int] = (16, 16, 8), device=None):
+                 heads: Sequence[int] = (16, 16, 8), transformer_dropout: float = 0.2,
+                 device=None):
         super().__init__()
         if tdnn_layers <= 4:
             raise ValueError("tdnn_layers must be > 4")
@@ -51,7 +69,7 @@ class TDNNTransformerEncoder(nn.Module):
             self.add_module(f"bn_{l}", nn.BatchNorm1d(nhid, eps=BN_EPS, device=device))
             if (l + 1) % 3 == 0 and n_transformers < len(heads):
                 self.add_module(f"transformer_{n_transformers}", TransformerEncoderLayer(
-                    nhid, heads[n_transformers], nhid * 4, device=device))
+                    nhid, heads[n_transformers], nhid * 4, transformer_dropout, device=device))
                 n_transformers += 1
         self.n_transformers = n_transformers
         self.bn_final = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)
@@ -70,9 +88,9 @@ class TDNNTransformerEncoder(nn.Module):
             out = _conv_out_len(out, self.filter_size, d, s)
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training mode (batch statistics, dropout) is not ported yet")
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, input_dim) -> (B, T', output_dim); dropout masks in train
+        mode come from ``generator``."""
         x = _bn(torch.relu(self.fc_in(x)), self.bn_in)
         t_layer = 0
         for l in range(self.tdnn_layers):
@@ -80,6 +98,6 @@ class TDNNTransformerEncoder(nn.Module):
             x = torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
             x = _bn(x, getattr(self, f"bn_{l}"))
             if (l + 1) % 3 == 0 and t_layer < self.n_transformers:
-                x = getattr(self, f"transformer_{t_layer}")(x)
+                x = getattr(self, f"transformer_{t_layer}")(x, generator=generator)
                 t_layer += 1
         return self.fc_out(_bn(x, self.bn_final))

@@ -1,10 +1,15 @@
 """RNN-Transducer: TDNN-Transformer encoder + LSTM prediction net + gated,
-factorized joint (port of ``pika_tpu/models/transducer.py``, eval path).
+factorized joint (port of ``pika_tpu/models/transducer.py``).
 
 Joint:  h(t, u) = tanh(fc1_x x_t + fc1_y y_u) * sigmoid(gate_x x_t + gate_y y_u)
         z(t, u) = W2 h(t, u) + b2
 with the first-layer biases on the y side only.  Blank = 0 doubles as SOS,
 prepended to the labels before the prediction net.
+
+Train mode is the module's own (``model.train()``): the encoder's BatchNorm
+takes batch statistics and updates its running ones, and its transformer
+layers drop out with ``tdnn_transformer_dropout``, drawing their masks from
+the generator passed to ``encode``.
 """
 
 from __future__ import annotations
@@ -64,8 +69,9 @@ class Transducer(nn.Module):
             raise NotImplementedError("attn_chunk, attn_flash and simple_joint are not ported yet")
         self.config = cfg
         h = cfg.hid_dim
-        self.encoder = TDNNTransformerEncoder(cfg.input_dim, h, cfg.tdnn_nhid,
-                                              cfg.tdnn_layers, device=device)
+        self.encoder = TDNNTransformerEncoder(
+            cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
+            transformer_dropout=cfg.tdnn_transformer_dropout, device=device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
         self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, device=device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
@@ -74,17 +80,29 @@ class Transducer(nn.Module):
         self.gate_y = nn.Linear(h, h, device=device)
         self.fc2 = nn.Linear(h, cfg.vocab_size, device=device)
 
-    def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _check_trainable(self) -> None:
+        cfg = self.config
+        if self.training and (cfg.dropout > 0 or cfg.attn_cheap_dropout or cfg.remat):
+            raise NotImplementedError("train mode with LSTM dropout (dropout > 0), "
+                                      "attn_cheap_dropout or remat is not ported yet")
+
+    def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, D) -> (B, T', H).  ``x_len`` is unused: the TDNN encoder
-        sees the padded frames, as the JAX encoder does."""
-        return self.encoder(x)
+        sees the padded frames, as the JAX encoder does.  Train mode draws
+        dropout masks from ``generator``."""
+        self._check_trainable()
+        return self.encoder(x, generator=generator)
 
     def encoder_out_len(self, x_len):
         return self.encoder.output_length(x_len)
 
     def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prediction net over labels with SOS prepended: (B, U) -> (B, U+1, H).
-        Positions at or past ``y_len + 1`` take the padding embedding row."""
+        Positions at or past ``y_len + 1`` take the padding embedding row.
+        The prediction net has no dropout (``dropout`` = 0), so it is the
+        same function in train mode."""
+        self._check_trainable()
         pad_id = self.config.pad_id
         y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
         if y_len is not None:

@@ -1,11 +1,17 @@
-"""Transformer blocks of the encoder, eval path
-(port of ``pika_tpu/models/transformer.py``).
+"""Transformer blocks of the encoder (port of ``pika_tpu/models/transformer.py``).
 
 Attention follows the JAX package's numerics: q, k, v and the softmax
 probabilities are rounded to bf16 and the products accumulate in float32
 (there: bf16 einsums with a float32 result).  Here the rounded values are
 multiplied as float32, which is exact for bf16 inputs, so CPU and GPU agree
-with the JAX package up to summation order.  LayerNorm eps is 1e-6.
+with the JAX package up to summation order; autograd rounds the gradients
+of q, k, v and the probabilities to bf16 at the same casts.  LayerNorm eps
+is 1e-6.
+
+In train mode, dropout acts where the JAX layer puts it: on the attention
+probabilities, on the attention output before the residual, and after the
+FFN's ReLU and its second linear layer.  Its masks come from the
+``torch.Generator`` passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -23,23 +29,37 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate), in x's dtype; the mask is drawn from
+    ``generator``."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class MultiHeadedAttention(nn.Module):
     """Scaled dot-product MHA; ``mask`` is (B, Tq, Tk) bool, True = disallow.
+    In train mode, dropout of ``dropout_rate`` on the probabilities.
 
-    The query-chunked path, clipped relative positions and the flash kernel
-    of the JAX module are not ported yet.
+    The query-chunked path, clipped relative positions, the head-shared
+    cheap dropout and the flash kernel of the JAX module are not ported yet.
     """
 
-    def __init__(self, head_count: int, model_dim: int, device=None):
+    def __init__(self, head_count: int, model_dim: int, dropout_rate: float = 0.0, device=None):
         super().__init__()
         self.head_count = head_count
         self.model_dim = model_dim
+        self.dropout_rate = dropout_rate
         self.linear_keys = nn.Linear(model_dim, model_dim, device=device)
         self.linear_values = nn.Linear(model_dim, model_dim, device=device)
         self.linear_query = nn.Linear(model_dim, model_dim, device=device)
         self.final_linear = nn.Linear(model_dim, model_dim, device=device)
 
-    def forward(self, key, value, query, mask: Optional[torch.Tensor] = None):
+    def forward(self, key, value, query, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         h, dim = self.head_count, self.model_dim
         d_head = dim // h
         b, tq = query.shape[:2]
@@ -55,35 +75,43 @@ class MultiHeadedAttention(nn.Module):
         if mask is not None:
             scores = scores.masked_fill(mask[:, None], -1e18)
         attn = _bf16(torch.softmax(scores, dim=-1))
+        attn = dropout(attn, self.dropout_rate if self.training else 0.0, generator)
         ctx = attn.float() @ v.float()
         ctx = ctx.to(query.dtype).transpose(1, 2).reshape(b, tq, dim)
         return self.final_linear(ctx)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """LN -> Linear(d_ff) -> ReLU -> Linear(d_model) -> +x."""
+    """LN -> Linear(d_ff) -> ReLU -> dropout -> Linear(d_model) -> dropout -> +x."""
 
-    def __init__(self, d_model: int, d_ff: int, device=None):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.w_1 = nn.Linear(d_model, d_ff, device=device)
         self.w_2 = nn.Linear(d_ff, d_model, device=device)
 
-    def forward(self, x):
-        return self.w_2(torch.relu(self.w_1(self.layer_norm(x)))) + x
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        rate = self.dropout_rate if self.training else 0.0
+        inter = dropout(torch.relu(self.w_1(self.layer_norm(x))), rate, generator)
+        return dropout(self.w_2(inter), rate, generator) + x
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm self-attention block + FFN, eval mode (no dropout)."""
+    """Pre-norm self-attention block + FFN: ``x + dropout(attn(LN(x)))``
+    then the FFN, with dropout of ``dropout_rate`` in train mode."""
 
-    def __init__(self, d_model: int, heads: int, d_ff: int, device=None):
+    def __init__(self, d_model: int, heads: int, d_ff: int, dropout_rate: float = 0.0,
+                 device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.self_attn = MultiHeadedAttention(heads, d_model, device=device)
-        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, device=device)
+        self.self_attn = MultiHeadedAttention(heads, d_model, dropout_rate, device=device)
+        self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, device=device)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
-        if self.training:
-            raise NotImplementedError("training mode (dropout) is not ported yet")
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         x_norm = self.layer_norm(x)
-        return self.feed_forward(self.self_attn(x_norm, x_norm, x_norm, mask=mask) + x)
+        ctx = self.self_attn(x_norm, x_norm, x_norm, mask=mask, generator=generator)
+        rate = self.dropout_rate if self.training else 0.0
+        return self.feed_forward(dropout(ctx, rate, generator) + x, generator)

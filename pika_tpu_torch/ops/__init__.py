@@ -1,4 +1,19 @@
-"""RNN-T loss (forward) and the fused joint-channel kernel K1."""
+"""RNN-T loss and the fused joint-channel kernels K1 (forward), K2 and K3
+(backward)."""
 
-from pika_tpu_torch.ops.rnnt_kernels import joint_channels, joint_channels_reference
-from pika_tpu_torch.ops.rnnt_loss import rnnt_alpha, rnnt_loss_forward, rnnt_loss_numpy
+from pika_tpu_torch.ops.rnnt_kernels import (
+    joint_channels,
+    joint_channels_bwd,
+    joint_channels_bwd_in,
+    joint_channels_bwd_reference,
+    joint_channels_bwd_w,
+    joint_channels_reference,
+)
+from pika_tpu_torch.ops.rnnt_loss import (
+    rnnt_alpha,
+    rnnt_beta,
+    rnnt_loss_forward,
+    rnnt_loss_fused,
+    rnnt_loss_numpy,
+    rnnt_occupancy,
+)

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``*.cu`` file under ``pika_tpu_torch/csrc`` is compiled for Hopper
-(``sm_90a``) into one shared library with a plain C interface.  The library
+(``sm_90a``), one nvcc process per file, all in parallel, and linked into one
+shared library with a plain C interface.  The library
 lands in ``pika_tpu_torch/_build/<hash>/``, keyed on a hash of the sources and
 the compiler flags, so an unchanged tree builds once.  The build happens at
 first use, never at import, and a failed build raises.
@@ -22,8 +23,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libpika_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -55,14 +56,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    # one nvcc per source, all at once, then one link
+    objs = [out_dir / f"{src.stem}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *map(str, objs)]
+    if all(proc.returncode == 0 for proc in procs):
+        link_proc = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        outs.append(link_proc.stdout + link_proc.stderr)
+        procs.append(link_proc)
+    (out_dir / "build.log").write_text(
+        "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)))
+    failed = [(cmd, out) for cmd, out, proc in zip(cmds, outs, procs) if proc.returncode != 0]
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
     return lib
 
@@ -74,6 +89,12 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pika_joint_channels_fwd.argtypes = [i, p] + [p] * 10 + [i] * 5
     lib.pika_joint_channels_fwd.restype = i
+    lib.pika_joint_channels_bwd_in_tile.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
+    lib.pika_joint_channels_bwd_in_tile.restype = i
+    lib.pika_joint_channels_bwd_in.argtypes = [i, p] + [p] * 16 + [i] * 7
+    lib.pika_joint_channels_bwd_in.restype = i
+    lib.pika_joint_channels_bwd_w.argtypes = [i, p] + [p] * 10 + [i] * 6
+    lib.pika_joint_channels_bwd_w.restype = i
     lib.pika_cuda_error_string.argtypes = [i]
     lib.pika_cuda_error_string.restype = ctypes.c_char_p
     return lib

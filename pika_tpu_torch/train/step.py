@@ -1,7 +1,13 @@
-"""Featurizer and eval step: waveforms -> features -> model -> RNN-T loss
-(port of the eval path of ``pika_tpu/train/step.py``).
+"""Featurizer, train step and eval step: waveforms -> features -> model ->
+RNN-T loss (port of ``pika_tpu/train/step.py``).
 
-The training step, SpecAugment and the optimizer are not ported yet.
+The train step runs the loss through K1 forward and K2/K3 backward
+(``ops/rnnt_loss.py:rnnt_loss_fused``), then the optimizer of
+``train/lr.py``.  Every random draw of a step (dither, SpecAugment, dropout)
+comes from the one ``torch.Generator`` passed to it, so two runs from the
+same seed draw the same numbers.  Not ported yet: ``compute_dtype`` (bf16
+autocast), the scanned multi-step, the pruned loss and the precomputed-
+feature featurizer.
 """
 
 from __future__ import annotations
@@ -12,9 +18,16 @@ from typing import Callable, Optional
 import torch
 
 from pika_tpu_torch.features.fbank import FbankConfig, make_fbank_fn
-from pika_tpu_torch.features.pipeline import apply_cmvn, splice, stride_subsample, strided_len
+from pika_tpu_torch.features.pipeline import (
+    apply_cmvn,
+    spec_augment,
+    splice,
+    stride_subsample,
+    strided_len,
+)
 from pika_tpu_torch.models.transducer import Transducer
-from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward
+from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
+from pika_tpu_torch.train.lr import Optimizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,54 +38,101 @@ class FeaturizerConfig:
     rctx: int = 0
     stride: int = 1
     cmn: bool = False
+    spec_augment: bool = False
+    max_freq_span: int = 15
+    max_time_span: int = 35
 
 
 def make_featurizer(cfg: FeaturizerConfig, cmvn_offset: Optional[torch.Tensor] = None,
                     cmvn_scale: Optional[torch.Tensor] = None, device=None) -> Callable:
-    """Build the eval featurizer ``featurize(wavs, wav_lens) -> (feats, feat_lens)``.
+    """Build ``featurize(wavs, wav_lens, generator=None) -> (feats, feat_lens)``.
 
     ``wavs`` are (B, max_samples) int16 or float32 in int16 scale.  The
     features are spliced, strided and normalized, ready for the encoder.
-    No dither (that is the training featurizer's).
+    Without a generator it is the eval featurizer (no dither, no
+    SpecAugment); with one it is the training featurizer: dither drawn from
+    the generator, then SpecAugment if ``cfg.spec_augment``.
     """
     fbank = make_fbank_fn(cfg.fbank, cfg.max_samples, device=device)
 
-    def featurize(wavs, wav_lens):
-        feats, frame_lens = fbank(wavs.float(), wav_lens)
+    def featurize(wavs, wav_lens, generator: Optional[torch.Generator] = None):
+        feats, frame_lens = fbank(wavs.float(), wav_lens, generator=generator)
         feats = stride_subsample(splice(feats, cfg.lctx, cfg.rctx, frame_lens=frame_lens),
                                  cfg.stride)
         feat_lens = strided_len(frame_lens, cfg.stride)
         if cmvn_offset is not None:
             feats = apply_cmvn(feats, cmvn_offset, cmvn_scale, cmn=cfg.cmn)
+        if cfg.spec_augment and generator is not None:
+            feats = spec_augment(feats, cfg.max_freq_span, cfg.max_time_span, generator)
         return feats, feat_lens
 
     return featurize
 
 
 def transducer_loss(model: Transducer, feats, feat_lens, labels, label_lens,
-                    loss_chunk: int = 32, loss_backend: str = "auto") -> torch.Tensor:
-    """Summed RNN-T loss of a batch through the fused joint (eval mode).
-    ``loss_backend`` is that of ``rnnt_loss_forward``."""
+                    loss_chunk: int = 32, loss_backend: str = "auto",
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Summed RNN-T loss of a batch through the fused joint, in the model's
+    mode (train: batch statistics and dropout from ``generator``), with
+    autograd unless the caller turned it off.  ``loss_backend`` is that of
+    ``rnnt_loss_fused``."""
     enc_lens = model.encoder_out_len(feat_lens)
-    enc = model.encode(feats, feat_lens)
+    enc = model.encode(feats, feat_lens, generator=generator)
     dec = model.predict(labels, label_lens)
     ax, gx, ay, gy = (x.float().contiguous() for x in model.joint_factors(enc, dec))
     w2, b2 = (x.float().contiguous() for x in model.joint_params())
-    losses = rnnt_loss_forward(ax, gx, ay, gy, w2, b2, labels, enc_lens, label_lens,
-                               loss_chunk, loss_backend)
+    losses = rnnt_loss_fused(ax, gx, ay, gy, w2, b2, labels, enc_lens, label_lens,
+                             loss_chunk, loss_backend)
     return losses.sum()
+
+
+def make_train_step(model: Transducer, optimizer: Optimizer, featurizer: Callable,
+                    loss_chunk: int = 32, loss_backend: str = "auto") -> Callable:
+    """Build ``step(batch, generator) -> {"loss", "num_labels", "num_frames"}``
+    over a batch dict of ``wavs``, ``wav_lens``, ``labels`` and ``label_lens``.
+
+    One step runs the featurizer with dither and SpecAugment, the model in
+    train mode, the summed loss and its backward, and one optimizer update.
+    It updates the model's parameters and its BatchNorm running statistics
+    in place (and restores the model's train/eval mode on return).  Every
+    random draw comes from ``generator``.  ``loss_backend="plain"`` takes
+    the plain versions of K1, K2 and K3 even on CUDA tensors.
+    """
+
+    def step(batch, generator: torch.Generator):
+        was_training = model.training
+        model.train()
+        try:
+            feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"], generator)
+            loss = transducer_loss(model, feats, feat_lens, batch["labels"], batch["label_lens"],
+                                   loss_chunk, loss_backend, generator)
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+        finally:
+            model.train(was_training)
+        return {"loss": loss.detach(), "num_labels": batch["label_lens"].sum(),
+                "num_frames": feat_lens.sum()}
+
+    return step
 
 
 def make_eval_step(model: Transducer, featurizer: Callable, loss_chunk: int = 32,
                    loss_backend: str = "auto") -> Callable:
     """Build ``step(batch) -> {"loss", "num_labels"}`` over a batch dict of
-    ``wavs``, ``wav_lens``, ``labels`` and ``label_lens``."""
+    ``wavs``, ``wav_lens``, ``labels`` and ``label_lens``; the model runs in
+    eval mode (restored on return)."""
 
     @torch.inference_mode()
     def step(batch):
-        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
-        loss = transducer_loss(model, feats, feat_lens, batch["labels"], batch["label_lens"],
-                               loss_chunk, loss_backend)
+        was_training = model.training
+        model.eval()
+        try:
+            feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+            loss = transducer_loss(model, feats, feat_lens, batch["labels"],
+                                   batch["label_lens"], loss_chunk, loss_backend)
+        finally:
+            model.train(was_training)
         return {"loss": loss, "num_labels": batch["label_lens"].sum()}
 
     return step

@@ -10,8 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from pika_tpu_torch.ops.rnnt_kernels import joint_channels, joint_channels_reference
-from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward
+from pika_tpu_torch.ops.rnnt_kernels import (
+    joint_channels,
+    joint_channels_bwd,
+    joint_channels_bwd_in,
+    joint_channels_bwd_reference,
+    joint_channels_bwd_w,
+    joint_channels_reference,
+)
+from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused
 
 pytestmark = pytest.mark.gpu
 
@@ -72,3 +79,83 @@ def test_loss_through_k1_matches_plain(cuda_device):
     ref = rnnt_loss_forward(ax, gx, ay, gy, w2, b2, labels, t_len, u_len, backend="plain")
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
     assert got[2].item() == 0.0
+
+
+def _bwd_case(device, b, t, u1, h, v, seed=0):
+    """Inputs of K2/K3: the factors, K1's lse, and random channel cotangents."""
+    args = _case(device, b, t, u1, h, v, seed)
+    lse = joint_channels_reference(*args)[0]
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    cots = tuple(torch.randn(lse.shape, generator=gen, device=device) * 0.1 for _ in range(3))
+    return args + (lse,) + cots
+
+
+def _assert_grads_close(got, ref, rtol):
+    """Each gradient within ``rtol`` of its largest reference entry, elementwise
+    (float32 sums over up to B*T*U1 cells in another order)."""
+    for name, g, r in zip(("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2"), got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        scale = max(r.abs().max().item(), 1e-6)
+        err = (g - r).abs().max().item()
+        assert err <= rtol * scale, f"{name}: max abs err {err} vs {rtol} x {scale}"
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 11, 96, 301), (1, 1, 1, 4, 1), (2, 1, 5, 64, 100),
+                                   (2, 9, 1, 64, 100), (3, 33, 5, 64, 256),
+                                   (2, 8, 3, 1030, 513), (2, 8, 3, 1500, 513),
+                                   (1, 6, 3, 2000, 300), (1, 5, 2, 3100, 129)])
+def test_k2_k3_match_reference(cuda_device, shape):
+    """K2 and K3 against the plain chunked vjp: every gradient within 1e-4 of
+    its largest entry.  One launch of each per call.  The H values reach each
+    row tile K2 picks (24, 16 and 8 cells per block), K3's 48-, 32- and
+    16-row chunks and its second pass over H (H > 1024); T = 1, U1 = 1,
+    V = 1 and V not a multiple of either V tile are the degenerate shapes."""
+    args = _bwd_case(cuda_device, *shape)
+    ref = joint_channels_bwd_reference(*args)
+    before = (joint_channels_bwd_in.launches, joint_channels_bwd_w.launches)
+    got = joint_channels_bwd(*args)
+    torch.cuda.synchronize()
+    assert (joint_channels_bwd_in.launches, joint_channels_bwd_w.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_grads_close(got, ref, 1e-4)
+
+
+def test_k2_k3_blank_is_label(cuda_device):
+    """Where labels_ext is 0 the blank and label cotangents both land on
+    column 0."""
+    args = list(_bwd_case(cuda_device, 2, 7, 4, 32, 50))
+    args[6] = torch.zeros_like(args[6])
+    _assert_grads_close(joint_channels_bwd(*args), joint_channels_bwd_reference(*args), 1e-4)
+
+
+def test_k2_k3_reject_bad_inputs(cuda_device):
+    args = list(_bwd_case(cuda_device, 2, 5, 3, 8, 10))
+    bad = dict(enumerate(args))
+    for i, x, match in ((0, args[0].transpose(0, 1).contiguous().transpose(0, 1), "contiguous"),
+                        (6, args[6].long(), "labels_ext"), (4, args[4].double(), "w2"),
+                        (8, args[8][:, :-1], "d_lse"), (7, args[7].cpu(), "lse")):
+        for fn in (joint_channels_bwd, joint_channels_bwd_in, joint_channels_bwd_w):
+            with pytest.raises(ValueError, match=match):
+                fn(*{**bad, i: x}.values())
+    with pytest.raises(RuntimeError, match="CUDA error"):  # h and dh tiles beyond shared memory
+        joint_channels_bwd(*_bwd_case(cuda_device, 1, 2, 2, 4000, 10))
+
+
+def test_loss_gradients_through_kernels_match_plain(cuda_device):
+    """Autograd through K1, K2 and K3 against the plain backend, with empty
+    and short utterances: losses to 1e-5, gradients within 1e-4 of their
+    largest entry; the empty utterance's gradients are exactly 0."""
+    ax, gx, ay, gy, w2, b2, labels_ext = _case(cuda_device, 3, 20, 8, 32, 70, seed=2)
+    labels = labels_ext[:, :-1].clamp(min=1)
+    t_len = torch.tensor([20, 11, 0], device=cuda_device)
+    u_len = torch.tensor([7, 4, 2], device=cuda_device)
+    out = {}
+    for backend in ("auto", "plain"):
+        leaves = [x.clone().requires_grad_() for x in (ax, gx, ay, gy, w2, b2)]
+        loss = rnnt_loss_fused(*leaves, labels, t_len, u_len, 8, backend)
+        loss.sum().backward()
+        out[backend] = (loss.detach(), [x.grad for x in leaves])
+    torch.testing.assert_close(out["auto"][0], out["plain"][0], rtol=1e-5, atol=1e-4)
+    _assert_grads_close(out["auto"][1], out["plain"][1], 1e-4)
+    for g in out["auto"][1][:4]:
+        assert torch.count_nonzero(g[2]) == 0
