@@ -18,14 +18,28 @@ V=6268, random weights from a seed):
   forward and K2/K3 backward, inf-norm clipping at 3, SGD-Nesterov -- one
   warm-up step, then 3 timed steps from one seeded generator, a profiled
   step, and one step each on the kernel and the plain loss backends from
-  the same weights and seed, which must agree.
+  the same weights and seed, which must agree;
+* the flash-attention path (``attn_flash=True``), whose encoder attention
+  runs through K4: K4 forward and backward against their plain versions at
+  ragged shapes, at the three encoder layers' shapes (B = 8 and 32) and at
+  one 60 s shape, timed at the training shape beside their bound, their
+  plain version and ``scaled_dot_product_attention`` (a yardstick the port
+  never calls); the eval step and greedy decode of 8 utterances of 10 s
+  (3 K4 launches per encoder pass; the loss against the exact path's); the
+  eval step on 4 utterances of 60 s with 240 labels on the flash and on the
+  exact path (peak memory, wall time, losses); and ``bench.py``'s step with
+  ``tdnn_transformer_dropout=0`` -- one warm-up and 2 timed steps through
+  K1-K4, then one step each with flash and exact attention from the same
+  weights and seed, which must agree.
 
 Float32 throughout, with TF32 off for matmuls and cuDNN convolutions, so the
-parity checks compare float32 with float32.
+parity checks compare float32 with float32; attention rounds q, k, v and the
+probabilities to bf16 on both paths, as the JAX package does.
 
 Output: one line per phase; then the card's name and power limit as
-nvidia-smi reports them; a JSON line with each kernel's launches on the
-training path, max abs error against its plain version, and both times; and
+nvidia-smi reports them; a JSON line with each kernel's launches on its
+training path, max abs error against its plain version, its time, its
+plain version's, its bound and the library call's where one exists; and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  There is no CPU mode: without a CUDA card it exits 1.
 """
@@ -46,6 +60,13 @@ from pika_tpu_torch.decode.greedy import greedy_decode_waveforms
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.ops import cuda_build
+from pika_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_reference,
+)
 from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels,
     joint_channels_bwd,
@@ -102,6 +123,28 @@ FBANK = dict(sample_frequency=SR, window_type="hamming", low_freq=40.0, high_fre
              num_mel_bins=80)
 OPTIM = dict(initial_lr=0.003, final_lr=0.0001, total_batches=100000, momentum=0.9,
              grad_clip=3.0)  # bench.py's optimizer
+# K4 against its plain version: bf16 outputs and gradients, p rounded to bf16
+# relative to the running max of the key tiles (kernel) or the row max
+# (plain), so they agree to bf16 rounding: relative L2 and the max abs error
+# as a share of the largest reference entry; lse is float32 (sums over T in
+# another order)
+K4_REL_L2, K4_MAX_REL, K4_LSE_ATOL = 1e-2, 1e-2, 1e-4
+K4_NOISE = 1e-5  # a gradient whose reference stays under this is held to it absolute
+# (heads, T, d_head) of the encoder's three attention layers at 10 s
+FLASH_LAYERS = ((16, 992, 64), (16, 974, 64), (8, 239, 128))
+LONG_SECONDS, LONG_BATCH, LONG_LABELS = 60, 4, 240
+# flash against exact attention (same weights and seed), bf16 rounding in
+# both, at other points: losses to 1e-3 relative (as the CPU tests hold the
+# bf16 attention against JAX); one train step's parameter changes to
+# STEP_TOL outside the encoder and 2e-1 inside it, BatchNorm statistics to
+# 1e-2.  The flash backward rounds ds to bf16, the exact one keeps it
+# float32; the transformer LayerNorm weights' small gradients amplify that
+# (measured on an H100: 4.4e-2 to 8.3e-2 in the worst encoder tensor over
+# three runs)
+FLASH_LOSS_RTOL, FLASH_ENCODER_TOL, FLASH_STATS_TOL = 1e-3, 2e-1, 1e-2
+# published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
+# HBM bytes per second
+PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -125,6 +168,14 @@ def time_ms(fn, warmup: int, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def joint_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int):
@@ -162,8 +213,13 @@ def kernel_parity(device) -> dict:
     ms = time_ms(lambda: joint_channels(*args), warmup=2, iters=10)
     plain_ms = time_ms(lambda: joint_channels_reference(*args), warmup=1, iters=5)
     flops = 2.0 * math.prod(shape)
+    b, t, u1, h, v = shape
+    k1_bound = bound(flops, 4 * (2 * b * t * h + 2 * b * u1 * h + h * v + v + b * u1
+                                 + 3 * b * t * u1), PEAK_F32)
     say(f"K1 flagship: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
-        f"plain version: {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s)")
+        f"plain version: {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s); "
+        f"bound {k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}, float32 "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s; bf16 {flops / PEAK_BF16 * 1e3:.3f} ms)")
 
     # the loss through K1 against the literal numpy DP, on a small input
     ax, gx, ay, gy, w2, b2, labels_ext = joint_case(device, 2, 2, 37, 11, 96, 301)
@@ -177,7 +233,7 @@ def kernel_parity(device) -> dict:
     loss = rnnt_loss_forward(ax, gx, ay, gy, w2, b2, labels, t_len, u_len).cpu().numpy()
     check(bool(np.allclose(loss, oracle, rtol=1e-4)), f"K1 loss {loss} vs numpy DP {oracle}")
     say(f"loss through K1 vs numpy DP: {loss.tolist()} vs {oracle.tolist()}: ok")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **k1_bound, "library_ms": None}
 
 
 def occupancy_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int, t_len, u_len):
@@ -227,37 +283,64 @@ def backward_parity(device) -> tuple[dict, dict]:
     k3_ms = time_ms(lambda: joint_channels_bwd_w(*args), warmup=1, iters=3)
     plain_ms = time_ms(lambda: joint_channels_bwd_reference(*args), warmup=1, iters=2)
     flops = 2 * 2.0 * math.prod(shape)  # two lattice-sized products per kernel
+    b, t, u1, h, v = shape
+    in_bytes = 4 * (2 * b * t * h + 2 * b * u1 * h + h * v + v + b * u1 + 4 * b * t * u1)
+    k2_bound = bound(flops, in_bytes + 4 * (2 * b * t * h + 2 * b * u1 * h), PEAK_F32)
+    k3_bound = bound(flops, in_bytes + 4 * (h * v + v), PEAK_F32)
     say(f"K2 flagship train: {k2_ms:.3f} ms ({flops / k2_ms / 1e9:.1f} TFLOP/s); "
         f"K3: {k3_ms:.3f} ms ({flops / k3_ms / 1e9:.1f} TFLOP/s); plain backward "
-        f"(all six gradients, chunk 32): {plain_ms:.3f} ms")
+        f"(all six gradients, chunk 32): {plain_ms:.3f} ms; bound of each "
+        f"{k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']}, float32 "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s; bf16 {flops / PEAK_BF16 * 1e3:.3f} ms)")
     del args
     torch.cuda.empty_cache()
-    return ({"max_abs_err": worst["K2"], "ms": k2_ms, "plain_ms": plain_ms},
-            {"max_abs_err": worst["K3"], "ms": k3_ms, "plain_ms": plain_ms})
+    return ({"max_abs_err": worst["K2"], "ms": k2_ms, "plain_ms": plain_ms, **k2_bound,
+             "library_ms": None},
+            {"max_abs_err": worst["K3"], "ms": k3_ms, "plain_ms": plain_ms, **k3_bound,
+             "library_ms": None})
 
 
-def flagship_batch(device, batch: int, seed: int = 0) -> dict:
-    """bench.py's batch: ``batch`` utterances of 10 s of int16-scale noise
-    and 40 random labels each."""
+def flagship_batch(device, batch: int, seed: int = 0, seconds: int = SECONDS,
+                   labels: int = U_MAX) -> dict:
+    """bench.py's batch: ``batch`` utterances of ``seconds`` s of int16-scale
+    noise and ``labels`` random labels each (10 s and 40 by default)."""
     rng = np.random.default_rng(seed)
-    max_samples = SR * SECONDS
+    max_samples = SR * seconds
     wavs = (rng.standard_normal((batch, max_samples)) * 4000).astype(np.float32)
     return {
         "wavs": torch.from_numpy(wavs).to(device),
         "wav_lens": torch.full((batch,), max_samples, dtype=torch.int32, device=device),
-        "labels": torch.from_numpy(rng.integers(1, VOCAB, (batch, U_MAX)).astype(np.int32)).to(device),
-        "label_lens": torch.full((batch,), U_MAX, dtype=torch.int32, device=device),
+        "labels": torch.from_numpy(rng.integers(1, VOCAB, (batch, labels)).astype(np.int32)).to(device),
+        "label_lens": torch.full((batch,), labels, dtype=torch.int32, device=device),
     }
 
 
-def inference_path(device) -> int:
-    """Flagship-width eval step and greedy decode; returns K1's launches."""
-    t0 = time.perf_counter()
-    model = init_transducer(TransducerConfig(**FLAGSHIP), torch.Generator(device).manual_seed(0),
-                            device)
+def eval_setup(device, seconds: int = SECONDS, **model_kw):
+    """The flagship model from seed 0 (``model_kw`` override its config) and
+    the eval featurizer for utterances of ``seconds`` s."""
+    model = init_transducer(TransducerConfig(**FLAGSHIP, **model_kw),
+                            torch.Generator(device).manual_seed(0), device)
     featurizer = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=0.0, **FBANK),
-                                                  max_samples=SR * SECONDS, lctx=1, rctx=1),
+                                                  max_samples=SR * seconds, lctx=1, rctx=1),
                                  device=device)
+    return model, featurizer
+
+
+def check_hyps(hyps, lens, device) -> None:
+    check(tuple(hyps.shape) == (BATCH, MAX_SYMBOLS) and tuple(lens.shape) == (BATCH,),
+          f"hyp shapes {tuple(hyps.shape)}, {tuple(lens.shape)}")
+    check(bool(((lens >= 0) & (lens <= MAX_SYMBOLS)).all()), f"hyp lens {lens.tolist()}")
+    slots = torch.arange(MAX_SYMBOLS, device=device)[None, :]
+    inside = slots < lens[:, None].long()
+    check(bool(((hyps >= 1) & (hyps < VOCAB))[inside].all()), "hyp tokens in [1, V)")
+    check(bool((hyps[~inside] == -1).all()), "hyp padding is -1")
+
+
+def inference_path(device) -> tuple[int, float]:
+    """Flagship-width eval step and greedy decode; returns K1's launches and
+    the eval loss."""
+    t0 = time.perf_counter()
+    model, featurizer = eval_setup(device)
     batch = flagship_batch(device, BATCH)
     eval_step = make_eval_step(model, featurizer, loss_chunk=32)
     torch.cuda.synchronize()
@@ -292,23 +375,18 @@ def inference_path(device) -> int:
     say(f"eval loss vs plain backend {loss_plain.item():.4f}: rel err {rel:.3e} "
         f"(rtol {LOSS_RTOL}): ok")
 
-    check(tuple(hyps.shape) == (BATCH, MAX_SYMBOLS) and tuple(lens.shape) == (BATCH,),
-          f"hyp shapes {tuple(hyps.shape)}, {tuple(lens.shape)}")
-    check(bool(((lens >= 0) & (lens <= MAX_SYMBOLS)).all()), f"hyp lens {lens.tolist()}")
-    slots = torch.arange(MAX_SYMBOLS, device=device)[None, :]
-    inside = slots < lens[:, None].long()
-    check(bool(((hyps >= 1) & (hyps < VOCAB))[inside].all()), "hyp tokens in [1, V)")
-    check(bool((hyps[~inside] == -1).all()), "hyp padding is -1")
+    check_hyps(hyps, lens, device)
     say(f"greedy decode: lens {lens.tolist()}: ok")
-    return launches
+    return launches, loss.item()
 
 
-def train_setup(device, batch: dict, backend: str = "auto"):
-    """A flagship model from seed 0 with bench.py's optimizer and the training
-    featurizer (dither 1.0, SpecAugment), CMVN from the batch's own frames;
-    returns ``(model, step)``."""
-    model = init_transducer(TransducerConfig(**FLAGSHIP), torch.Generator(device).manual_seed(0),
-                            device)
+def train_setup(device, batch: dict, backend: str = "auto", **model_kw):
+    """A flagship model from seed 0 (``model_kw`` override its config) with
+    bench.py's optimizer and the training featurizer (dither 1.0,
+    SpecAugment), CMVN from the batch's own frames; returns
+    ``(model, step)``."""
+    model = init_transducer(TransducerConfig(**FLAGSHIP, **model_kw),
+                            torch.Generator(device).manual_seed(0), device)
     feat_cfg = dict(max_samples=SR * SECONDS, lctx=1, rctx=1)
     with torch.no_grad():
         plain = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=0.0, **FBANK),
@@ -393,9 +471,10 @@ def train_path(device) -> tuple[dict, float]:
     return launches, step_s
 
 
-def profile_step(step, batch, gen, device) -> None:
+def profile_step(step, batch, gen, device, also: str = "") -> None:
     """torch.profiler over one warm train step: device-busy share of the
-    wall time and the kernels with the most device time."""
+    wall time, the kernels with the most device time, and the device time of
+    those whose name holds ``also``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -414,34 +493,43 @@ def profile_step(step, batch, gen, device) -> None:
     n_kernels = sum(e.count for e in events)
     say(f"profiled train step: wall {wall:.4f} s (profiler on), device busy "
         f"{busy_us / 1e6:.4f} s ({busy_us / 1e6 / wall:.1%}), {n_kernels} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:10] + [e for e in ranked[10:] if also and also in e.key]:
         say(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
 
 
-def backend_parity(device) -> None:
-    """One train step on the kernel backend and one on the plain backend,
-    from the same weights and the same generator seed (so the same dither,
-    SpecAugment and dropout draws)."""
-    batch = flagship_batch(device, TRAIN_BATCH)
-    out = {}
-    for backend in ("auto", "plain"):
-        model, step = train_setup(device, batch, backend)
-        init = {n: x.detach().clone() for n, x in model.state_dict().items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(batch, torch.Generator(device).manual_seed(3))["loss"].item()
-        secs = time.perf_counter() - t0
-        out[backend] = (loss, {n: (x.detach() - init[n]) if not n.endswith(
-            ("running_mean", "running_var", "num_batches_tracked")) else x.detach().clone()
-            for n, x in model.state_dict().items()})
-        say(f"train step on the {backend} loss backend: loss {loss:.4f}, {secs:.3f} s "
-            f"(first step of a fresh model)")
-        del model, step, init
-        torch.cuda.empty_cache()
-    (la, sa), (lp, sp) = out["auto"], out["plain"]
+def one_step(device, batch: dict, what: str, backend: str = "auto", **model_kw):
+    """One train step of a fresh flagship model from seed 0 with generator
+    seed 3 (so the same dither, SpecAugment and dropout draws in every
+    call); returns the loss and each parameter's change (each statistic's
+    value)."""
+    model, step = train_setup(device, batch, backend, **model_kw)
+    init = {n: x.detach().clone() for n, x in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    loss = step(batch, torch.Generator(device).manual_seed(3))["loss"].item()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    state = {n: (x.detach() - init[n]) if not n.endswith(
+        ("running_mean", "running_var", "num_batches_tracked")) else x.detach().clone()
+        for n, x in model.state_dict().items()}
+    say(f"train step {what}: loss {loss:.4f}, {secs:.3f} s (first step of a fresh model), "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    del model, step, init
+    torch.cuda.empty_cache()
+    return loss, state
+
+
+def compare_steps(what: str, got, ref, loss_rtol: float, encoder_tol: float,
+                  stats_tol: float) -> None:
+    """Hold one step's loss, parameter changes (``encoder_tol`` relative L2 in
+    the encoder, STEP_TOL elsewhere) and BatchNorm statistics to another's;
+    quantities that are 0 but for float noise to 1e-6 absolute."""
+    (la, sa), (lp, sp) = got, ref
     rel = abs(la - lp) / abs(lp)
-    check(rel <= STEP_LOSS_RTOL, f"train loss {la} vs plain backend {lp}")
+    check(rel <= loss_rtol, f"train loss {what}: {la} vs {lp}")
     worst = []
     for name, a in sa.items():
         if name.endswith("num_batches_tracked"):
@@ -449,17 +537,260 @@ def backend_parity(device) -> None:
         p = sp[name]
         err = ((a - p).norm() / p.norm().clamp(min=1e-30)).item()
         stats = name.endswith(("running_mean", "running_var"))
-        tol = STATS_TOL if stats else STEP_ENCODER_TOL if name.startswith("encoder.") else STEP_TOL
+        tol = stats_tol if stats else encoder_tol if name.startswith("encoder.") else STEP_TOL
         if p.abs().max().item() < 1e-6:  # a quantity that is 0 but for float noise
             err, tol = (a - p).abs().max().item(), 1e-6
         worst.append((err / tol, err, tol, name))
     worst.sort(reverse=True)
-    say(f"train step kernel vs plain backend: loss rel err {rel:.3e} (rtol {STEP_LOSS_RTOL}); "
+    say(f"train step {what}: loss rel err {rel:.3e} (rtol {loss_rtol}); "
         "largest parameter-change / statistic errors (rel L2, tol): "
         + "; ".join(f"{n} {e:.2e} ({t:g})" for _, e, t, n in worst[:6]))
-    check(worst[0][0] <= 1.0, f"train step kernel vs plain backend: {worst[0][3]} "
+    check(worst[0][0] <= 1.0, f"train step {what}: {worst[0][3]} "
                               f"error {worst[0][1]} > tol {worst[0][2]}")
-    say("train step kernel vs plain backend: ok")
+    say(f"train step {what}: ok")
+
+
+def backend_parity(device) -> None:
+    """One train step on the kernel backend and one on the plain backend,
+    from the same weights and the same generator seed."""
+    batch = flagship_batch(device, TRAIN_BATCH)
+    got = one_step(device, batch, "on the auto loss backend")
+    ref = one_step(device, batch, "on the plain loss backend", "plain")
+    compare_steps("kernel vs plain backend", got, ref, STEP_LOSS_RTOL, STEP_ENCODER_TOL, STATS_TOL)
+
+
+def k4_case(device, seed: int, b: int, h: int, t: int, d: int):
+    """bf16 q (scaled as the layer scales it: scores of a few units), k, v
+    and an output cotangent."""
+    g = torch.Generator(device).manual_seed(seed)
+
+    def randn(scale):
+        return (torch.randn((b, h, t, d), generator=g, device=device) * scale).to(torch.bfloat16)
+
+    return randn(2.0 / math.sqrt(d)), randn(1.0), randn(1.0), randn(1.0)
+
+
+def k4_reference(q, k, v, do):
+    """K4's plain forward, then its plain backward from that forward's o and
+    lse, a few utterances at a time so that one call's (b, h, T, T) float32
+    scores stay near 2 GB."""
+    chunk = max(1, int(2e9 // (4 * q.shape[1] * q.shape[2] ** 2)))
+    parts = []
+    for i in range(0, q.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        o, lse = flash_attention_reference(q[sl], k[sl], v[sl])
+        parts.append((o, lse) + flash_attention_bwd_reference(q[sl], k[sl], v[sl], o, lse, do[sl]))
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def k4_bytes(b, h, t, d, n_bf16: int, n_f32: int) -> float:
+    return b * h * t * (2 * d * n_bf16 + 4 * n_f32)
+
+
+def k4_parity(device) -> dict:
+    """K4 forward, dk/dv and dq against their plain versions (the backward
+    kernels fed the plain forward's o and lse) at ragged shapes, at the
+    encoder layers' shapes at B = 8 and 32, and at one 60 s shape; then each
+    kernel, its plain version and scaled_dot_product_attention timed over
+    the three layers at the training shape (B = 32)."""
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    cases = [("ragged", (2, 3, 37, 64)), ("ragged", (2, 3, 130, 128)), ("ragged", (1, 2, 1, 64))]
+    cases += [(f"layer {i} B={b}", (b, h, t, d)) for b in (BATCH, TRAIN_BATCH)
+              for i, (h, t, d) in enumerate(FLASH_LAYERS)]
+    cases.append((f"{LONG_SECONDS} s", (LONG_BATCH, 16, 5992, 64)))
+    for name, shape in cases:
+        q, k, v, do = k4_case(device, 4, *shape)
+        ref_o, ref_lse, ref_dq, ref_dk, ref_dv = k4_reference(q, k, v, do)
+        o, lse = flash_attention_fwd(q, k, v)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, ref_o, ref_lse, do)
+        dq = flash_attention_bwd_dq(q, k, v, ref_o, ref_lse, do)
+        torch.cuda.synchronize()
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(bool(torch.isfinite(lse).all()) and lse_err <= K4_LSE_ATOL,
+              f"K4 {name} {shape} lse: max abs err {lse_err} (atol {K4_LSE_ATOL})")
+        parts = [f"lse {lse_err:.2e}"]
+        for kernel, g_name, got, ref in (("fwd", "o", o, ref_o), ("dkv", "dk", dk, ref_dk),
+                                         ("dkv", "dv", dv, ref_dv), ("dq", "dq", dq, ref_dq)):
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            rel = ((got - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+            check(bool(torch.isfinite(got).all()), f"K4 {name} {shape} {g_name} finite")
+            if scale < K4_NOISE:  # 0 but for float noise (dk at T = 1: ds = p (dp - di) = 0)
+                rel, scale = 0.0, K4_NOISE / K4_MAX_REL
+            check(rel <= K4_REL_L2 and err <= K4_MAX_REL * scale,
+                  f"K4 {name} {shape} {g_name}: rel L2 {rel} (tol {K4_REL_L2}), max abs {err} "
+                  f"(tol {K4_MAX_REL} x {scale})")
+            parts.append(f"{g_name} {err:.2e} of {scale:.2e}, rel L2 {rel:.2e}")
+            worst[kernel] = max(worst[kernel], err)
+        say(f"K4 parity {name} B,h,T,d={shape}: max abs err " + "; ".join(parts)
+            + f" (rel L2 tol {K4_REL_L2}, max abs tol {K4_MAX_REL} x max|ref|): ok")
+        del q, k, v, do, ref_o, ref_lse, ref_dq, ref_dk, ref_dv, o, lse, dk, dv, dq
+        torch.cuda.empty_cache()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {key: 0.0 for key in ("fwd", "dkv", "dq", "plain_fwd", "plain_bwd", "sdpa_fwd",
+                                  "sdpa_bwd")}
+    bounds = {"fwd": [0.0, 0.0], "dkv": [0.0, 0.0], "dq": [0.0, 0.0]}  # flops, bytes
+    for h, t, d in FLASH_LAYERS:
+        b = TRAIN_BATCH
+        q, k, v, do = k4_case(device, 5, b, h, t, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        times["fwd"] += time_ms(lambda: flash_attention_fwd(q, k, v), warmup=2, iters=10)
+        times["dkv"] += time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do), 2, 10)
+        times["dq"] += time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do), 2, 10)
+        times["plain_fwd"] += time_ms(lambda: flash_attention_reference(q, k, v), 1, 3)
+        times["plain_bwd"] += time_ms(
+            lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 1, 3)
+        times["sdpa_fwd"] += time_ms(lambda: sdpa(q, k, v, scale=1.0), 2, 10)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = sdpa(*leaves, scale=1.0)
+        times["sdpa_bwd"] += time_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2, 10)
+        flops = b * h * t * t * d
+        for key, mult, n_bf16, n_f32 in (("fwd", 4, 4, 1), ("dkv", 8, 7, 1), ("dq", 6, 6, 1)):
+            bounds[key][0] += mult * flops
+            bounds[key][1] += k4_bytes(b, h, t, d, n_bf16, n_f32)
+        del q, k, v, do, o, lse, leaves, out
+        torch.cuda.empty_cache()
+    out = {}
+    for key in ("fwd", "dkv", "dq"):
+        plain, lib = ("plain_fwd", "sdpa_fwd") if key == "fwd" else ("plain_bwd", "sdpa_bwd")
+        out[key] = {"max_abs_err": worst[key], "ms": times[key], "plain_ms": times[plain],
+                    **bound(*bounds[key], PEAK_BF16), "library_ms": times[lib]}
+        flops = bounds[key][0]
+        say(f"K4 {key}, B={TRAIN_BATCH}, three layers: {times[key]:.3f} ms "
+            f"({flops / times[key] / 1e9:.1f} TFLOP/s); plain {times[plain]:.3f} ms; "
+            f"scaled_dot_product_attention {times[lib]:.3f} ms; bound "
+            f"{out[key]['bound_ms']:.3f} ms ({out[key]['bound_by']}, bf16 "
+            f"{PEAK_BF16 / 1e12:.0f} TFLOP/s)")
+    say("  (the plain and library backward times are one call that yields dq, dk and dv)")
+    return out
+
+
+def reset_launches() -> None:
+    for fn in (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w, flash_attention_fwd,
+               flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        fn.launches = 0
+
+
+def k4_launches() -> dict:
+    return {"fwd": flash_attention_fwd.launches, "dkv": flash_attention_bwd_dkv.launches,
+            "dq": flash_attention_bwd_dq.launches}
+
+
+def flash_inference_path(device, exact_loss: float) -> None:
+    """The eval step and greedy decode of the inference path with
+    ``attn_flash=True`` (same seed, so the same weights): 3 K4 launches per
+    encoder pass, the loss against the exact path's."""
+    model, featurizer = eval_setup(device, attn_flash=True)
+    batch = flagship_batch(device, BATCH)
+    eval_step = make_eval_step(model, featurizer, loss_chunk=32)
+    eval_step(batch)  # first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = eval_step(batch)["loss"].item()
+    eval_s = time.perf_counter() - t0
+    eval_launches = k4_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    hyps, lens = greedy_decode_waveforms(model, featurizer, batch["wavs"], batch["wav_lens"],
+                                         max_symbols=MAX_SYMBOLS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = k4_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"flash eval step (K4 + K1): {eval_s:.3f} s, loss {loss:.4f}; greedy decode: "
+        f"{decode_s:.3f} s; peak memory {peak / 2**30:.3f} GiB; K4 launches: eval {eval_launches}, "
+        f"decode {decode_launches}")
+    expect = {"fwd": 3, "dkv": 0, "dq": 0}
+    check(eval_launches == expect and decode_launches == expect,
+          f"3 K4 forward launches per encoder pass: eval {eval_launches}, decode "
+          f"{decode_launches}")
+    check(math.isfinite(loss), "flash eval loss finite")
+    rel = abs(loss - exact_loss) / abs(exact_loss)
+    check(rel <= FLASH_LOSS_RTOL, f"flash eval loss {loss} vs exact {exact_loss}")
+    say(f"flash eval loss vs exact attention {exact_loss:.4f}: rel err {rel:.3e} "
+        f"(rtol {FLASH_LOSS_RTOL}): ok")
+    check_hyps(hyps, lens, device)
+    say(f"flash greedy decode: lens {lens.tolist()}: ok")
+
+
+def long_utterances(device) -> None:
+    """The eval step on 4 utterances of 60 s with 240 labels each, with flash
+    and with exact attention from the same weights: peak memory, wall time
+    (second call), losses."""
+    batch = flagship_batch(device, LONG_BATCH, seconds=LONG_SECONDS, labels=LONG_LABELS)
+    losses = {}
+    for flash in (True, False):
+        model, featurizer = eval_setup(device, LONG_SECONDS, attn_flash=flash)
+        eval_step = make_eval_step(model, featurizer, loss_chunk=32)
+        eval_step(batch)  # first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses[flash] = eval_step(batch)["loss"].item()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = flash_attention_fwd.launches
+        say(f"{LONG_BATCH} x {LONG_SECONDS} s eval step, {'flash' if flash else 'exact'} "
+            f"attention: {secs:.3f} s, peak memory {peak / 2**30:.3f} GiB, loss "
+            f"{losses[flash]:.4f}, K4 launches {launches}")
+        check(launches == (3 if flash else 0), f"K4 launches {launches}")
+        check(math.isfinite(losses[flash]), "long eval loss finite")
+        del model, featurizer, eval_step
+        torch.cuda.empty_cache()
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    check(rel <= FLASH_LOSS_RTOL, f"long eval loss flash {losses[True]} vs exact {losses[False]}")
+    say(f"{LONG_SECONDS} s eval loss, flash vs exact: rel err {rel:.3e} (rtol {FLASH_LOSS_RTOL}): ok")
+
+
+def flash_train_path(device) -> dict:
+    """bench.py's step with attn_flash=True and dropout 0: one warm-up step,
+    then 2 timed steps and a profiled one; returns the launches of K1-K4
+    over the timed steps."""
+    batch = flagship_batch(device, TRAIN_BATCH)
+    model, step = train_setup(device, batch, attn_flash=True, tdnn_transformer_dropout=0.0)
+    gen = torch.Generator(device).manual_seed(1)
+    t0 = time.perf_counter()
+    first = step(batch, gen)["loss"].item()
+    say(f"flash train step, first call: {time.perf_counter() - t0:.3f} s, loss {first:.4f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    times, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(step(batch, gen)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches, **{f"K4 {k}": n for k, n in k4_launches().items()}}
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"flash train steps (K4 fwd/bwd, K1 fwd, K2/K3 bwd), batch {TRAIN_BATCH} x {SECONDS} s, "
+        f"dropout 0: {', '.join(f'{x:.4f}' for x in times)} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"flash train losses finite: {losses}")
+    check(all(n > 0 for n in launches.values()), f"the flash train steps launched K1-K4: {launches}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "parameters finite")
+    profile_step(step, batch, gen, device, also="flash_")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_step_parity(device) -> None:
+    """One train step with flash and one with exact attention (dropout 0),
+    from the same weights and generator seed."""
+    batch = flagship_batch(device, TRAIN_BATCH)
+    got = one_step(device, batch, "with flash attention", attn_flash=True,
+                   tdnn_transformer_dropout=0.0)
+    ref = one_step(device, batch, "with exact attention", tdnn_transformer_dropout=0.0)
+    compare_steps("flash vs exact attention", got, ref, FLASH_LOSS_RTOL, FLASH_ENCODER_TOL,
+                  FLASH_STATS_TOL)
 
 
 def main() -> int:
@@ -485,9 +816,14 @@ def main() -> int:
 
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)
-    inference_launches = inference_path(device)
+    k4 = k4_parity(device)
+    inference_launches, exact_loss = inference_path(device)
+    flash_inference_path(device, exact_loss)
+    long_utterances(device)
     launches, _ = train_path(device)
     backend_parity(device)
+    flash_launches = flash_train_path(device)
+    flash_step_parity(device)
 
     say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}")
     say(card)
@@ -501,6 +837,21 @@ def main() -> int:
         {"name": "joint_channels_bwd_w", "route": "cuda",
          "source": "pika_tpu_torch/csrc/joint_channels_bwd.cu",
          "replaces": "pika_tpu/ops/rnnt_pallas.py:284", "launches": launches["K3"], **k3},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "pika_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "
+                     "(via pika_tpu/models/transformer.py:181)",
+         "launches": flash_launches["K4 fwd"], **k4["fwd"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "pika_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                     "(via pika_tpu/models/transformer.py:181)",
+         "launches": flash_launches["K4 dkv"], **k4["dkv"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "pika_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                     "(via pika_tpu/models/transformer.py:181)",
+         "launches": flash_launches["K4 dq"], **k4["dq"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

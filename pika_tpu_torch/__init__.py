@@ -6,8 +6,11 @@ training, dither and SpecAugment) -> TDNN-Transformer encoder -> LSTM
 prediction net -> factorized joint, feeding the RNN-T loss -- forward through
 the hand-written CUDA kernel in ``csrc/joint_channels_fwd.cu``, backward
 through those in ``csrc/joint_channels_bwd.cu`` -- then SGD-Nesterov with
-inf-norm clipping; and greedy decoding.  The package imports torch and never
-JAX.
+inf-norm clipping; and greedy decoding.  With ``attn_flash`` the encoder's
+attention core runs through the flash-attention kernels of
+``csrc/flash_attention.cu``, forward and backward.  The entry points run on
+the CUDA card unless the caller names another device (``device="cpu"``).
+The package imports torch and never JAX.
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pika_tpu_torch.device import resolve_device
+
 _FLT_EPSILON = float(np.finfo(np.float32).eps)
 
 
@@ -148,7 +150,8 @@ def mel_banks_matrix(config: FbankConfig, dtype=np.float64) -> np.ndarray:
 
 
 def make_fbank_fn(config: FbankConfig, max_samples: int, device=None):
-    """Build a batched fbank over padded waveforms on ``device``.
+    """Build a batched fbank over padded waveforms on ``device`` (the CUDA
+    card unless the caller names another, e.g. ``"cpu"``).
 
     Returns ``fbank(waveforms[B, max_samples], num_samples[B], generator=None)
     -> (feats[B, max_frames, num_mel_bins], frame_lens[B])``.  Frames past an
@@ -159,6 +162,7 @@ def make_fbank_fn(config: FbankConfig, max_samples: int, device=None):
     flen, fshift = config.frame_length, config.frame_shift
     padded = config.padded_window_size
     max_frames = max(0, 1 + (max_samples - flen) // fshift)
+    device = resolve_device(device)
     window = torch.as_tensor(feature_window(config, np.float32), device=device)
     mel = torch.as_tensor(mel_banks_matrix(config, np.float32), device=device)
     preemph = config.preemphasis_coefficient

@@ -12,7 +12,9 @@ BatchNorm follows flax's: in eval mode it uses the running statistics; in
 train mode it normalizes with the batch mean and the *biased* batch
 variance over (B, T) and updates ``ra = 0.9 ra + 0.1 stat`` with that same
 biased variance (``torch.nn.BatchNorm1d`` would use the unbiased one).  The
-transformer layers run with ``transformer_dropout`` in train mode.
+transformer layers run with ``transformer_dropout`` in train mode, and
+``attn_flash`` takes their attention core through K4 where the JAX layer
+takes its flash kernel (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ class TDNNTransformerEncoder(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, tdnn_nhid: int = 1024,
                  tdnn_layers: int = 9, filter_size: int = 3,
                  heads: Sequence[int] = (16, 16, 8), transformer_dropout: float = 0.2,
-                 device=None):
+                 attn_flash: bool = False, device=None):
         super().__init__()
         if tdnn_layers <= 4:
             raise ValueError("tdnn_layers must be > 4")
@@ -69,7 +71,8 @@ class TDNNTransformerEncoder(nn.Module):
             self.add_module(f"bn_{l}", nn.BatchNorm1d(nhid, eps=BN_EPS, device=device))
             if (l + 1) % 3 == 0 and n_transformers < len(heads):
                 self.add_module(f"transformer_{n_transformers}", TransformerEncoderLayer(
-                    nhid, heads[n_transformers], nhid * 4, transformer_dropout, device=device))
+                    nhid, heads[n_transformers], nhid * 4, transformer_dropout, attn_flash,
+                    device=device))
                 n_transformers += 1
         self.n_transformers = n_transformers
         self.bn_final = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)

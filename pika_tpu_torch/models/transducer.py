@@ -6,6 +6,9 @@ Joint:  h(t, u) = tanh(fc1_x x_t + fc1_y y_u) * sigmoid(gate_x x_t + gate_y y_u)
 with the first-layer biases on the y side only.  Blank = 0 doubles as SOS,
 prepended to the labels before the prediction net.
 
+``attn_flash`` takes the encoder's attention core through K4
+(``ops/flash_attention.py``) where the JAX package takes its flash kernel.
+
 Train mode is the module's own (``model.train()``): the encoder's BatchNorm
 takes batch statistics and updates its running ones, and its transformer
 layers drop out with ``tdnn_transformer_dropout``, drawing their masks from
@@ -20,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
 
@@ -65,13 +69,14 @@ class Transducer(nn.Module):
             raise NotImplementedError(
                 f"encoder {cfg.encoder_type!r} / decoder {cfg.decoder_type!r}: only "
                 "tdnn_transformer + rnn is ported")
-        if cfg.attn_chunk or cfg.attn_flash or cfg.simple_joint:
-            raise NotImplementedError("attn_chunk, attn_flash and simple_joint are not ported yet")
+        if cfg.attn_chunk or cfg.simple_joint:
+            raise NotImplementedError("attn_chunk and simple_joint are not ported yet")
         self.config = cfg
         h = cfg.hid_dim
         self.encoder = TDNNTransformerEncoder(
             cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
-            transformer_dropout=cfg.tdnn_transformer_dropout, device=device)
+            transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
+            device=device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
         self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, device=device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
@@ -166,11 +171,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def init_transducer(cfg: TransducerConfig, generator: torch.Generator,
-                    device="cpu") -> Transducer:
-    """A ``Transducer`` on ``device`` with random weights drawn from
-    ``generator`` (which must live on the same device type), in eval mode."""
+                    device=None) -> Transducer:
+    """A ``Transducer`` on ``device`` (the CUDA card unless the caller names
+    another, e.g. ``"cpu"``) with random weights drawn from ``generator``
+    (which must live on the same device type), in eval mode."""
     with torch.device("meta"):
         model = Transducer(cfg)
-    model = model.to_empty(device=device)
+    model = model.to_empty(device=resolve_device(device))
     init_parameters(model, generator)
     return model.eval()

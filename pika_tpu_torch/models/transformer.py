@@ -8,6 +8,13 @@ with the JAX package up to summation order; autograd rounds the gradients
 of q, k, v and the probabilities to bf16 at the same casts.  LayerNorm eps
 is 1e-6.
 
+With ``use_flash`` (``attn_flash`` on the layer), the attention core goes
+through K4 (``ops/flash_attention.py``: the hand-written kernel on CUDA
+tensors, its plain version on CPU tensors) under the JAX layer's own
+conditions -- no mask, one length for queries and keys, and no dropout on
+the probabilities (eval mode or rate 0) -- and takes the exact path
+otherwise, as the JAX layer does.  Its output is bf16 too.
+
 In train mode, dropout acts where the JAX layer puts it: on the attention
 probabilities, on the attention output before the residual, and after the
 FFN's ReLU and its second linear layer.  Its masks come from the
@@ -21,6 +28,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from pika_tpu_torch.ops.flash_attention import flash_attention
 
 LN_EPS = 1e-6
 
@@ -43,16 +52,20 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 class MultiHeadedAttention(nn.Module):
     """Scaled dot-product MHA; ``mask`` is (B, Tq, Tk) bool, True = disallow.
     In train mode, dropout of ``dropout_rate`` on the probabilities.
+    ``use_flash``: the core through K4 where the JAX layer takes its flash
+    kernel (module docstring).
 
-    The query-chunked path, clipped relative positions, the head-shared
-    cheap dropout and the flash kernel of the JAX module are not ported yet.
+    The query-chunked path, clipped relative positions and the head-shared
+    cheap dropout of the JAX module are not ported yet.
     """
 
-    def __init__(self, head_count: int, model_dim: int, dropout_rate: float = 0.0, device=None):
+    def __init__(self, head_count: int, model_dim: int, dropout_rate: float = 0.0,
+                 use_flash: bool = False, device=None):
         super().__init__()
         self.head_count = head_count
         self.model_dim = model_dim
         self.dropout_rate = dropout_rate
+        self.use_flash = use_flash
         self.linear_keys = nn.Linear(model_dim, model_dim, device=device)
         self.linear_values = nn.Linear(model_dim, model_dim, device=device)
         self.linear_query = nn.Linear(model_dim, model_dim, device=device)
@@ -71,6 +84,11 @@ class MultiHeadedAttention(nn.Module):
         v = split_heads(self.linear_values(value))
         q = split_heads(self.linear_query(query))
         q = q / torch.tensor(math.sqrt(d_head), dtype=torch.bfloat16)  # scaled after the cast
+        no_prob_dropout = not self.training or self.dropout_rate == 0.0
+        if self.use_flash and mask is None and tq == k.shape[2] and no_prob_dropout:
+            ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            ctx = ctx.to(query.dtype).transpose(1, 2).reshape(b, tq, dim)
+            return self.final_linear(ctx)
         scores = q.float() @ k.float().transpose(-1, -2)
         if mask is not None:
             scores = scores.masked_fill(mask[:, None], -1e18)
@@ -99,14 +117,16 @@ class PositionwiseFeedForward(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm self-attention block + FFN: ``x + dropout(attn(LN(x)))``
-    then the FFN, with dropout of ``dropout_rate`` in train mode."""
+    then the FFN, with dropout of ``dropout_rate`` in train mode;
+    ``attn_flash`` is the attention's ``use_flash``."""
 
     def __init__(self, d_model: int, heads: int, d_ff: int, dropout_rate: float = 0.0,
-                 device=None):
+                 attn_flash: bool = False, device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.self_attn = MultiHeadedAttention(heads, d_model, dropout_rate, device=device)
+        self.self_attn = MultiHeadedAttention(heads, d_model, dropout_rate, attn_flash,
+                                              device=device)
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,

@@ -1,6 +1,16 @@
-"""RNN-T loss and the fused joint-channel kernels K1 (forward), K2 and K3
-(backward)."""
+"""RNN-T loss, the fused joint-channel kernels K1 (forward), K2 and K3
+(backward), and the flash-attention kernel K4 (forward and backward)."""
 
+from pika_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_reference,
+)
 from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels,
     joint_channels_bwd,

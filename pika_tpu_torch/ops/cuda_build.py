@@ -95,6 +95,12 @@ def library() -> ctypes.CDLL:
     lib.pika_joint_channels_bwd_in.restype = i
     lib.pika_joint_channels_bwd_w.argtypes = [i, p] + [p] * 10 + [i] * 6
     lib.pika_joint_channels_bwd_w.restype = i
+    lib.pika_flash_attention_fwd.argtypes = [i, p] + [p] * 5 + [i] * 3
+    lib.pika_flash_attention_fwd.restype = i
+    lib.pika_flash_attention_bwd_dkv.argtypes = [i, p] + [p] * 8 + [i] * 3
+    lib.pika_flash_attention_bwd_dkv.restype = i
+    lib.pika_flash_attention_bwd_dq.argtypes = [i, p] + [p] * 7 + [i] * 3
+    lib.pika_flash_attention_bwd_dq.restype = i
     lib.pika_cuda_error_string.argtypes = [i]
     lib.pika_cuda_error_string.restype = ctypes.c_char_p
     return lib

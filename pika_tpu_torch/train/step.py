@@ -45,7 +45,9 @@ class FeaturizerConfig:
 
 def make_featurizer(cfg: FeaturizerConfig, cmvn_offset: Optional[torch.Tensor] = None,
                     cmvn_scale: Optional[torch.Tensor] = None, device=None) -> Callable:
-    """Build ``featurize(wavs, wav_lens, generator=None) -> (feats, feat_lens)``.
+    """Build ``featurize(wavs, wav_lens, generator=None) -> (feats, feat_lens)``
+    on ``device`` (the CUDA card unless the caller names another, e.g.
+    ``"cpu"``).
 
     ``wavs`` are (B, max_samples) int16 or float32 in int16 scale.  The
     features are spliced, strided and normalized, ready for the encoder.

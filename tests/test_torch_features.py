@@ -56,7 +56,7 @@ def test_fbank_matches_oracle_and_jax(rng, n_samples):
     wav[0, :n_samples] = pcm
     oracle = fbank_jax.fbank_numpy(pcm, fbank_jax.FbankConfig(**CONF))
     n = oracle.shape[0]
-    feats, lens = fbank_pt.make_fbank_fn(fbank_pt.FbankConfig(**CONF), max_samples)(
+    feats, lens = fbank_pt.make_fbank_fn(fbank_pt.FbankConfig(**CONF), max_samples, device="cpu")(
         torch.from_numpy(wav), torch.tensor([n_samples]))
     assert int(lens[0]) == n
     got = feats[0, :n].numpy()
@@ -70,7 +70,7 @@ def test_fbank_matches_oracle_and_jax(rng, n_samples):
 def test_fbank_dither_uses_generator(rng):
     cfg = fbank_pt.FbankConfig(**dict(CONF, dither=1.0))
     wav = torch.from_numpy((rng.standard_normal((2, 4000)) * 100).astype(np.float32))
-    fb = fbank_pt.make_fbank_fn(cfg, 4000)
+    fb = fbank_pt.make_fbank_fn(cfg, 4000, device="cpu")
     lens = torch.tensor([4000, 3000])
     a, _ = fb(wav, lens, generator=torch.Generator().manual_seed(1))
     b, _ = fb(wav, lens, generator=torch.Generator().manual_seed(1))

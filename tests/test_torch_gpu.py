@@ -10,6 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from pika_tpu_torch.models.transformer import MultiHeadedAttention
+from pika_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_reference,
+)
 from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels,
     joint_channels_bwd,
@@ -159,3 +168,129 @@ def test_loss_gradients_through_kernels_match_plain(cuda_device):
     _assert_grads_close(out["auto"][1], out["plain"][1], 1e-4)
     for g in out["auto"][1][:4]:
         assert torch.count_nonzero(g[2]) == 0
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention
+# ---------------------------------------------------------------------------
+
+def _k4_case(device, b, h, t, d, seed=0):
+    """bf16 q (scaled as the layer scales it), k, v and an output cotangent."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, h, t, d)).astype(np.float32) * scale
+              for scale in (2.0 / np.sqrt(d), 1.0, 1.0, 1.0)]
+    return tuple(torch.from_numpy(a).to(device).to(torch.bfloat16) for a in arrays)
+
+
+def _assert_k4_close(got, ref, name, tol=1e-2):
+    """bf16 results: the kernel rounds p relative to the running max of its
+    key tiles, the plain version relative to the row max, so they agree to
+    bf16 rounding: ``tol`` relative L2 and ``tol`` of the largest entry.  A
+    result that is 0 but for float noise (dk at T = 1, where ds = 0) is held
+    to 1e-5 absolute."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype, name
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all(), name
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if scale < 1e-5:
+        assert err <= 1e-5, f"{name}: max abs {err}"
+        return
+    rel = ((got - ref).norm() / ref.norm()).item()
+    assert rel <= tol and err <= tol * scale, f"{name}: rel L2 {rel}, max abs {err} of {scale}"
+
+
+def _k4_launches():
+    return (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 64), (2, 3, 37, 64), (2, 3, 37, 128),
+                                   (1, 2, 64, 64), (2, 2, 130, 128), (1, 2, 200, 64),
+                                   (2, 16, 992, 64), (1, 8, 239, 128)])
+def test_k4_matches_reference(cuda_device, shape):
+    """K4's forward, dk/dv and dq kernels against the plain versions (the
+    backward kernels fed the plain forward's o and lse): T = 1, T below,
+    at and across the 64-row tile, the encoder layers' T = 992 and 239; lse
+    to 1e-4 (float32).  One launch of each per call."""
+    q, k, v, do = _k4_case(cuda_device, *shape)
+    ref_o, ref_lse = flash_attention_reference(q, k, v)
+    ref_dq, ref_dk, ref_dv = flash_attention_bwd_reference(q, k, v, ref_o, ref_lse, do)
+    before = _k4_launches()
+    o, lse = flash_attention_fwd(q, k, v)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, ref_o, ref_lse, do)
+    dq = flash_attention_bwd_dq(q, k, v, ref_o, ref_lse, do)
+    torch.cuda.synchronize()
+    assert _k4_launches() == tuple(n + 1 for n in before)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    for name, got, ref in (("o", o, ref_o), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        _assert_k4_close(got, ref, name)
+
+
+def test_k4_autograd_is_deterministic(cuda_device):
+    """``flash_attention`` with autograd on the card: forward and backward
+    through the three kernels (one launch each), the gradients against the
+    plain backward from the kernel's own forward, bit-identical on a second
+    run (no atomics)."""
+    q, k, v, do = _k4_case(cuda_device, 2, 4, 150, 64, seed=1)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = _k4_launches()
+        o = flash_attention(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert _k4_launches() == tuple(n + 1 for n in before)
+        runs.append([o.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    o, lse = flash_attention_fwd(q, k, v)
+    for name, got, ref in zip(("dq", "dk", "dv"), runs[0][1:],
+                              flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        _assert_k4_close(got, ref, name)
+
+
+def test_k4_rejects_bad_inputs(cuda_device):
+    q, k, v, do = _k4_case(cuda_device, 1, 2, 40, 64)
+    for args, match in (((q.float(), k, v), "bfloat16"), ((q, k.cpu(), v), "bfloat16"),
+                        ((q[..., :32].contiguous(), k, v), "d in"),
+                        ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v), "contiguous"),
+                        ((q, k, v[:, :, :-1]), "bfloat16")):
+        with pytest.raises(ValueError, match=match):
+            flash_attention_fwd(*args)
+    o, lse = flash_attention_fwd(q, k, v)
+    for fn in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, o, lse.double(), do)
+        with pytest.raises(ValueError, match="do"):
+            fn(q, k, v, o, lse, do.float())
+
+
+def test_flash_layer_matches_exact_on_card(cuda_device):
+    """``MultiHeadedAttention(use_flash=True)`` through K4 against the exact
+    layer with the same weights, at the encoder's first layer width: output
+    to 1e-2 relative L2 (bf16 rounding at other points), each parameter's
+    gradient to 3e-2 (the flash backward rounds ds to bf16 before its
+    products, the exact one keeps it float32).  The key bias's gradient is 0
+    but for that noise: under 1e-2 of the value bias's on both paths."""
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn((2, 300, 1024), generator=gen, device=cuda_device)
+    out = {}
+    for use_flash in (True, False):
+        torch.manual_seed(0)
+        layer = MultiHeadedAttention(16, 1024, use_flash=use_flash, device=cuda_device)
+        before = flash_attention_fwd.launches
+        y = layer(x, x, x)
+        y.square().sum().backward()
+        assert flash_attention_fwd.launches == before + int(use_flash)
+        out[use_flash] = (y.detach(), {n: p.grad for n, p in layer.named_parameters()})
+    rel = ((out[True][0] - out[False][0]).norm() / out[False][0].norm()).item()
+    assert rel <= 1e-2, rel
+    scale = out[False][1]["linear_values.bias"].abs().max().item()
+    for name, g in out[True][1].items():
+        ref = out[False][1][name]
+        if name == "linear_keys.bias":  # 0 but for rounding noise on both paths
+            assert max(g.abs().max().item(), ref.abs().max().item()) <= 1e-2 * scale
+            continue
+        rel = ((g - ref).norm() / ref.norm()).item()
+        assert rel <= 3e-2, (name, rel)

@@ -55,7 +55,7 @@ def tiny(rng):
     v = _np(variables)
     v["batch_stats"] = _stats(v["batch_stats"], rng)
     pt = transducer_pt.init_transducer(transducer_pt.TransducerConfig(**TINY),
-                                       torch.Generator().manual_seed(0))
+                                       torch.Generator().manual_seed(0), device="cpu")
     convert.load_flax_variables(pt, v)
     return model, v, pt
 
@@ -182,7 +182,7 @@ def test_unported_options_raise():
 
 def test_init_is_seeded():
     cfg = transducer_pt.TransducerConfig(**TINY)
-    a, b, c = (transducer_pt.init_transducer(cfg, torch.Generator().manual_seed(s))
+    a, b, c = (transducer_pt.init_transducer(cfg, torch.Generator().manual_seed(s), device="cpu")
                for s in (0, 0, 1))
     for (k, x), y, z in zip(a.state_dict().items(), b.state_dict().values(),
                             c.state_dict().values()):

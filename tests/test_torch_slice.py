@@ -65,11 +65,12 @@ def slice_inputs():
 
 
 def _port(s):
-    model = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0))
+    model = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0),
+                            device="cpu")
     load_flax_variables(model, s["variables"])
     featurizer = make_featurizer(
         FeaturizerConfig(fbank=FbankConfig(**FBANK), max_samples=MAX_SAMPLES, lctx=1, rctx=1),
-        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]))
+        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]), device="cpu")
     return model, featurizer
 
 

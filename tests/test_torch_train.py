@@ -384,7 +384,7 @@ def step_inputs():
     # variance near its eps, which makes the gradient jump (in both packages)
     # with the last bit of its input
     plain = make_featurizer(FeaturizerConfig(fbank=FbankConfig(**FBANK), max_samples=MAX_SAMPLES,
-                                             lctx=1, rctx=1))
+                                             lctx=1, rctx=1), device="cpu")
     feats, lens = plain(torch.from_numpy(wavs), torch.from_numpy(wav_lens))
     valid = torch.cat([f[:n] for f, n in zip(feats, lens.tolist())]).numpy()
     offset = -valid.mean(0).astype(np.float32)
@@ -415,11 +415,12 @@ def _jax_steps(s, n):
 
 
 def _port_steps(s, n, backend="auto"):
-    model = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0))
+    model = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0),
+                            device="cpu")
     convert.load_flax_variables(model, s["variables"])
     featurizer = make_featurizer(
         FeaturizerConfig(fbank=FbankConfig(**FBANK), max_samples=MAX_SAMPLES, lctx=1, rctx=1),
-        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]))
+        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]), device="cpu")
     step = make_train_step(model, make_optimizer(model.parameters(), "sgd", **OPTIM),
                            featurizer, loss_chunk=8, loss_backend=backend)
     gen = torch.Generator().manual_seed(0)
@@ -490,11 +491,11 @@ def test_train_step_randomness_is_seeded(step_inputs):
     featurizer = make_featurizer(
         FeaturizerConfig(fbank=FbankConfig(**dict(FBANK, dither=1.0)), max_samples=MAX_SAMPLES,
                          lctx=1, rctx=1, spec_augment=True),
-        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]))
+        torch.from_numpy(s["offset"]), torch.from_numpy(s["scale"]), device="cpu")
     batch = {k: torch.from_numpy(x) for k, x in s["batches"][0].items()}
     results = []
     for seed in (5, 5, 6):
-        model = init_transducer(cfg, torch.Generator().manual_seed(0))
+        model = init_transducer(cfg, torch.Generator().manual_seed(0), device="cpu")
         step = make_train_step(model, make_optimizer(model.parameters(), "sgd", **OPTIM),
                                featurizer, loss_chunk=8)
         loss = step(batch, torch.Generator().manual_seed(seed))["loss"]
@@ -507,7 +508,7 @@ def test_train_step_randomness_is_seeded(step_inputs):
 def test_unported_train_options_raise(step_inputs):
     for kw in (dict(dropout=0.1), dict(attn_cheap_dropout=True), dict(remat=True)):
         model = init_transducer(TransducerConfig(**dict(MODEL, **kw)),
-                                torch.Generator().manual_seed(0))
+                                torch.Generator().manual_seed(0), device="cpu")
         x = torch.zeros(1, 64, 3 * MEL)
         model.encode(x)  # eval mode runs
         with pytest.raises(NotImplementedError):
