@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +65,7 @@ from pika_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,
+    flash_attention_di,
     flash_attention_fwd,
     flash_attention_reference,
 )
@@ -145,6 +147,18 @@ FLASH_LOSS_RTOL, FLASH_ENCODER_TOL, FLASH_STATS_TOL = 1e-3, 2e-1, 1e-2
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<N>`` of a mangled kernel name such as
+    ``_ZN.._cu_..20flash_bwd_dkv_kernelILi64EEEv..``: each name in it is
+    prefixed by its length."""
+    for found in re.finditer(r"\d+", mangled):
+        name = mangled[found.end():found.end() + int(found[0])]
+        if name.endswith("_kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[found.end() + len(name):])
+            return f"{name}<{arg[1]}>" if arg else name
+    return mangled[:60]
 
 
 def check(ok: bool, what: str) -> None:
@@ -629,29 +643,43 @@ def k4_parity(device) -> dict:
         torch.cuda.empty_cache()
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    times = {key: 0.0 for key in ("fwd", "dkv", "dq", "plain_fwd", "plain_bwd", "sdpa_fwd",
+    times = {key: 0.0 for key in ("fwd", "dkv", "dq", "di", "plain_fwd", "plain_bwd", "sdpa_fwd",
                                   "sdpa_bwd")}
     bounds = {"fwd": [0.0, 0.0], "dkv": [0.0, 0.0], "dq": [0.0, 0.0]}  # flops, bytes
     for h, t, d in FLASH_LAYERS:
         b = TRAIN_BATCH
         q, k, v, do = k4_case(device, 5, b, h, t, d)
         o, lse = flash_attention_fwd(q, k, v)
-        times["fwd"] += time_ms(lambda: flash_attention_fwd(q, k, v), warmup=2, iters=10)
-        times["dkv"] += time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do), 2, 10)
-        times["dq"] += time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do), 2, 10)
-        times["plain_fwd"] += time_ms(lambda: flash_attention_reference(q, k, v), 1, 3)
-        times["plain_bwd"] += time_ms(
-            lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 1, 3)
-        times["sdpa_fwd"] += time_ms(lambda: sdpa(q, k, v, scale=1.0), 2, 10)
+        # di = sum(o * do), which the autograd backward takes once for both
+        # kernels: the kernels are timed without it, and it on its own
+        di = flash_attention_di(o, do)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out = sdpa(*leaves, scale=1.0)
-        times["sdpa_bwd"] += time_ms(
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2, 10)
+        layer = {
+            "fwd": time_ms(lambda: flash_attention_fwd(q, k, v), warmup=2, iters=10),
+            "dkv": time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di), 2, 10),
+            "dq": time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, di=di), 2, 10),
+            "di": time_ms(lambda: flash_attention_di(o, do), 2, 10),
+            "plain_fwd": time_ms(lambda: flash_attention_reference(q, k, v), 1, 3),
+            "plain_bwd": time_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 1, 3),
+            "sdpa_fwd": time_ms(lambda: sdpa(q, k, v, scale=1.0), 2, 10),
+            "sdpa_bwd": time_ms(
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2, 10),
+        }
         flops = b * h * t * t * d
-        for key, mult, n_bf16, n_f32 in (("fwd", 4, 4, 1), ("dkv", 8, 7, 1), ("dq", 6, 6, 1)):
+        # bytes: bf16 tensors read and written, f32 (B, h, T) rows (lse; lse and di)
+        for key, mult, n_bf16, n_f32 in (("fwd", 4, 4, 1), ("dkv", 8, 6, 2), ("dq", 6, 5, 2)):
             bounds[key][0] += mult * flops
             bounds[key][1] += k4_bytes(b, h, t, d, n_bf16, n_f32)
-        del q, k, v, do, o, lse, leaves, out
+        for key, ms in layer.items():
+            times[key] += ms
+        say(f"K4 layer B,h,T,d=({b}, {h}, {t}, {d}): fwd {layer['fwd']:.3f} ms "
+            f"({4 * flops / layer['fwd'] / 1e9:.1f} TFLOP/s), dk/dv {layer['dkv']:.3f} ms "
+            f"({8 * flops / layer['dkv'] / 1e9:.1f}), dq {layer['dq']:.3f} ms "
+            f"({6 * flops / layer['dq'] / 1e9:.1f}), di {layer['di']:.3f} ms; "
+            f"scaled_dot_product_attention fwd {layer['sdpa_fwd']:.3f}, "
+            f"bwd {layer['sdpa_bwd']:.3f} ms")
+        del q, k, v, do, o, lse, di, leaves, out
         torch.cuda.empty_cache()
     out = {}
     for key in ("fwd", "dkv", "dq"):
@@ -665,6 +693,13 @@ def k4_parity(device) -> dict:
             f"{out[key]['bound_ms']:.3f} ms ({out[key]['bound_by']}, bf16 "
             f"{PEAK_BF16 / 1e12:.0f} TFLOP/s)")
     say("  (the plain and library backward times are one call that yields dq, dk and dv)")
+    pair, pair_flops = times["dkv"] + times["dq"], bounds["dkv"][0] + bounds["dq"][0]
+    say(f"K4 backward, B={TRAIN_BATCH}, three layers: dk/dv {times['dkv']:.3f} + dq "
+        f"{times['dq']:.3f} = {pair:.3f} ms ({pair_flops / pair / 1e9:.1f} TFLOP/s; "
+        f"{pair / times['sdpa_bwd']:.2f}x scaled_dot_product_attention's backward, "
+        f"{times['sdpa_bwd']:.3f} ms); + di (torch) {times['di']:.3f} = "
+        f"{pair + times['di']:.3f} ms as autograd runs it "
+        f"({(pair + times['di']) / times['sdpa_bwd']:.2f}x)")
     return out
 
 
@@ -810,9 +845,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cuda_build.build()
     say(f"build: {time.perf_counter() - t0:.3f} s -> {lib.relative_to(cuda_build.PKG_DIR.parent)}")
+    kernel = ""
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "bytes smem" in line:
-            say(f"  {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = kernel_label(line.split("'")[1])
+        if any(key in line for key in ("registers", "spill", "bytes smem", "warning", "C75")):
+            say(f"  {kernel}: {line.strip()[:160]}")
 
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)

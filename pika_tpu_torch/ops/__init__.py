@@ -8,6 +8,7 @@ from pika_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,
+    flash_attention_di,
     flash_attention_fwd,
     flash_attention_reference,
 )

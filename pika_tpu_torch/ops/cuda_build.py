@@ -3,8 +3,9 @@
 Every ``*.cu`` file under ``pika_tpu_torch/csrc`` is compiled for Hopper
 (``sm_90a``), one nvcc process per file, all in parallel, and linked into one
 shared library with a plain C interface.  The library
-lands in ``pika_tpu_torch/_build/<hash>/``, keyed on a hash of the sources and
-the compiler flags, so an unchanged tree builds once.  The build happens at
+lands in ``pika_tpu_torch/_build/<hash>/``, keyed on a hash of the sources,
+the headers they include (``*.cuh``) and the compiler flags, so an unchanged
+tree builds once.  The build happens at
 first use, never at import, and a failed build raises.
 """
 
@@ -35,11 +36,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _sources() -> list[Path]:
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc: Path = CSRC_DIR) -> list[Path]:
+    srcs = sorted(csrc.glob("*.cu"))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return srcs
+
+
+def source_digest(csrc: Path = CSRC_DIR, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    """The build's key: a hash of the compiler flags and of every ``*.cu``
+    source and ``*.cuh`` header under ``csrc`` (names and contents)."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        digest.update(path.name.encode() + b"\0")
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
 
 
 def build() -> Path:
@@ -47,11 +58,7 @@ def build() -> Path:
     its path.  ``build.log`` beside it keeps nvcc's output (ptxas register
     and shared-memory counts)."""
     srcs = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    out_dir = BUILD_DIR / source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib

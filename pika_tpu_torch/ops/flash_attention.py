@@ -19,12 +19,17 @@ Bound on the H100: the products on the bf16 tensor cores (989 TFLOP/s),
 B=32, heads 16/16/8, T=992/974/239, summed over the three layers), 8 and 6
 times B*h*T^2*d for the dk/dv and dq kernels (0.52 and 0.39 TFLOP); their
 bytes are far fewer.
-Design (``csrc/flash_attention.cu`` has the details): a block of 4 warps
-owns 64 queries (forward, dq) or 64 keys (dk/dv) and loops over the other
-axis itself, with mma.sync bf16 products from ldmatrix'd shared tiles and
-the online softmax in registers; keys and queries at or past T are masked
-in the kernel where the JAX wrapper pads T with segment ids; nothing crosses
-blocks, so there are no atomics.  di = sum(o * do) is taken with torch.
+Design (``csrc/flash_attention.cu`` has the details): every block owns a
+tile of queries (forward, dq) or keys (dk/dv) and loops over the other axis
+itself; keys and queries at or past T are masked in the kernel where the
+JAX wrapper pads T with segment ids; nothing crosses blocks, so there are
+no atomics and the results are identical from run to run.  The forward is
+4 warps of mma.sync over ldmatrix'd shared tiles with the online softmax in
+registers.  The two backward kernels are Hopper kernels: a TMA producer
+warp streams 64-row tiles through a 4-stage shared-memory ring while two
+consumer warpgroups run wgmma, with p and ds as the register operand of
+the gradient products.  di = sum(o * do) is taken with torch, once per
+backward (``flash_attention_di``), and handed to both kernels.
 
 The plain versions materialize the (B, h, T, T) scores; they round p to
 bf16 relative to the row's max, the kernel relative to the running max of
@@ -111,25 +116,33 @@ def flash_attention_fwd(q, k, v):
     return o, lse
 
 
-def _check_bwd(what, q, k, v, o, lse, do):
+def _check_bwd(what, q, k, v, o, lse, do, di):
     bh, t, d = _check_cuda(what, q=q, k=k, v=v, o=o, do=do)
-    if lse.dtype != torch.float32 or lse.shape != q.shape[:3] or lse.device != q.device \
-            or not lse.is_contiguous():
-        raise ValueError(f"{what}: lse must be contiguous float32 {tuple(q.shape[:3])} on "
-                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    for name, x in (("lse", lse), ("di", di)):
+        if x is None:
+            continue
+        if x.dtype != torch.float32 or x.shape != q.shape[:3] or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"{tuple(q.shape[:3])} on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
     return bh, t, d
 
 
-def _di(o, do):
-    return (o.float() * do.float()).sum(dim=-1)
+def flash_attention_di(o, do):
+    """di = sum(o * do) over the head dimension, float32 (B, h, T): the
+    softmax backward's row term, shared by both backward kernels."""
+    return (o.float() * do).sum(dim=-1)  # do joins the float32 product exactly, uncopied
 
 
-def flash_attention_bwd_dkv(q, k, v, o, lse, do):
-    """K4 backward, the dk/dv kernel: ``(dk, dv)``."""
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, di=None):
+    """K4 backward, the dk/dv kernel: ``(dk, dv)``.  ``di`` is
+    ``flash_attention_di(o, do)``, computed here when not given."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do)[1:]
-    bh, t, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, o, lse, do)
-    di = _di(o, do)
+    bh, t, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, o, lse, do, di)
+    if di is None:
+        di = flash_attention_di(o, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = cuda_build.library().pika_flash_attention_bwd_dkv(
         q.device.index, _stream(q), *(x.data_ptr() for x in (q, k, v, do, lse, di, dk, dv)),
@@ -139,12 +152,13 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do):
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do):
-    """K4 backward, the dq kernel: ``dq``."""
+def flash_attention_bwd_dq(q, k, v, o, lse, do, di=None):
+    """K4 backward, the dq kernel: ``dq``.  ``di`` as for the dk/dv kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do)[0]
-    bh, t, d = _check_bwd("flash_attention_bwd_dq", q, k, v, o, lse, do)
-    di = _di(o, do)
+    bh, t, d = _check_bwd("flash_attention_bwd_dq", q, k, v, o, lse, do, di)
+    if di is None:
+        di = flash_attention_di(o, do)
     dq = torch.empty_like(q)
     rc = cuda_build.library().pika_flash_attention_bwd_dq(
         q.device.index, _stream(q), *(x.data_ptr() for x in (q, k, v, do, lse, di, dq)),
@@ -155,12 +169,13 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
-    """K4 backward: ``(dq, dk, dv)`` bf16.  On CUDA: the dk/dv kernel, then
-    the dq kernel."""
+    """K4 backward: ``(dq, dk, dv)`` bf16.  On CUDA: di once, then the dk/dv
+    kernel and the dq kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do)
-    return flash_attention_bwd_dq(q, k, v, o, lse, do), dk, dv
+    di = flash_attention_di(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di)
+    return flash_attention_bwd_dq(q, k, v, o, lse, do, di=di), dk, dv
 
 
 flash_attention_fwd.launches = 0

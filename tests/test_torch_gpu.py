@@ -6,6 +6,8 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,8 @@ from pika_tpu_torch.ops.rnnt_kernels import (
 from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused
 
 pytestmark = pytest.mark.gpu
+# the module itself: the package re-exports a function of the same name
+flash_module = importlib.import_module("pika_tpu_torch.ops.flash_attention")
 
 
 @pytest.fixture
@@ -206,12 +210,16 @@ def _k4_launches():
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 64), (2, 3, 37, 64), (2, 3, 37, 128),
                                    (1, 2, 64, 64), (2, 2, 130, 128), (1, 2, 200, 64),
-                                   (2, 16, 992, 64), (1, 8, 239, 128)])
+                                   (2, 16, 992, 64), (1, 8, 239, 128),
+                                   *((1, 2, t, d) for t in (127, 128, 129, 255, 1000)
+                                     for d in (64, 128))])
 def test_k4_matches_reference(cuda_device, shape):
     """K4's forward, dk/dv and dq kernels against the plain versions (the
     backward kernels fed the plain forward's o and lse): T = 1, T below,
-    at and across the 64-row tile, the encoder layers' T = 992 and 239; lse
-    to 1e-4 (float32).  One launch of each per call."""
+    at and across the 64-row tile and the backward's 128-row block (127,
+    128, 129, 255), T = 1000 (16 streamed tiles: the 3-stage ring wraps 5
+    times), the encoder layers' T = 992 and 239; lse to 1e-4 (float32).
+    One launch of each per call."""
     q, k, v, do = _k4_case(cuda_device, *shape)
     ref_o, ref_lse = flash_attention_reference(q, k, v)
     ref_dq, ref_dk, ref_dv = flash_attention_bwd_reference(q, k, v, ref_o, ref_lse, do)
@@ -248,6 +256,31 @@ def test_k4_autograd_is_deterministic(cuda_device):
     for name, got, ref in zip(("dq", "dk", "dv"), runs[0][1:],
                               flash_attention_bwd_reference(q, k, v, o, lse, do)):
         _assert_k4_close(got, ref, name)
+
+
+def test_k4_backward_takes_di_once(cuda_device, monkeypatch):
+    """One autograd backward evaluates di = sum(o * do) once and hands it to
+    both kernels; a di passed in gives the same bits as one computed inside."""
+    calls = []
+    di_fn = flash_module.flash_attention_di
+    monkeypatch.setattr(flash_module, "flash_attention_di",
+                        lambda o, do: calls.append(1) or di_fn(o, do))
+    q, k, v, do = _k4_case(cuda_device, 2, 4, 150, 128, seed=2)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    o, lse = flash_attention_fwd(q, k, v)
+    di = di_fn(o, do)
+    for given, inside in ((flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di),
+                           flash_attention_bwd_dkv(q, k, v, o, lse, do)),
+                          ((flash_attention_bwd_dq(q, k, v, o, lse, do, di=di),),
+                           (flash_attention_bwd_dq(q, k, v, o, lse, do),))):
+        for a, b in zip(given, inside):
+            assert torch.equal(a, b)
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="di"):
+        flash_attention_bwd_dq(q, k, v, o, lse, do, di=di.double())
 
 
 def test_k4_rejects_bad_inputs(cuda_device):
