@@ -7,7 +7,8 @@ from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 builds the CUDA kernels from ``pika_tpu_torch/csrc``, holds each against its
 plain PyTorch version at the shapes its path gives it (K1 at the eval shape,
 K2 and K3 at a ragged shape and at the training shape, fed the cotangents of
-a real occupancy), then drives the port at the flagship width
+a real occupancy; K3 at the bf16 rounding of the TPU kernel it replaces,
+and also against float32), then drives the port at the flagship width
 (``bench.py``'s model: TDNN-Transformer 9x1024, 2x1024 LSTM prediction net,
 V=6268, random weights from a seed):
 
@@ -15,7 +16,7 @@ V=6268, random weights from a seed):
   decoding of 8 utterances of 10 s;
 * the training path: ``bench.py``'s step on 32 utterances of 10 s with 40
   labels -- dither 1.0, SpecAugment, dropout 0.2, the loss through K1
-  forward and K2/K3 backward, inf-norm clipping at 3, SGD-Nesterov -- one
+  forward and K2/K3 backward (K3 in bf16), inf-norm clipping at 3, SGD-Nesterov -- one
   warm-up step, then 3 timed steps from one seeded generator, a profiled
   step, and one step each on the kernel and the plain loss backends from
   the same weights and seed, which must agree;
@@ -75,7 +76,9 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_in,
     joint_channels_bwd_reference,
     joint_channels_bwd_w,
+    joint_channels_bwd_w_reference,
     joint_channels_reference,
+    k3_chunk_rows,
 )
 from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_alpha,
@@ -107,6 +110,12 @@ LOSS_RTOL = 1e-3
 # lattice taken in another order: per gradient, relative L2 and the max abs
 # error as a share of the largest reference entry
 K23_REL_L2, K23_MAX_REL = 1e-5, 1e-4
+# K3 against its bf16 plain version (both round h, W2 and dz to bf16 at the
+# TPU kernel's points): float32 sums in another order, exp2 against exp, and
+# the rare bf16 flip of an h or dz that this moves across a rounding
+# boundary; and against the float32 plain version within the envelope the
+# TPU kernels' bf16 rounding was measured at (BASELINE.md, flagship scale)
+K3_REL_L2, K3_MAX_REL, K3_ENVELOPE = 1e-4, 1e-3, 6.4e-3
 TRAIN_BATCH = 32  # bench.py's batch
 TIMED_STEPS = 3
 # one train step on the kernel backend against the plain one, same weights
@@ -154,10 +163,12 @@ def kernel_label(mangled: str) -> str:
     ``_ZN.._cu_..20flash_bwd_dkv_kernelILi64EEEv..``: each name in it is
     prefixed by its length."""
     for found in re.finditer(r"\d+", mangled):
-        name = mangled[found.end():found.end() + int(found[0])]
-        if name.endswith("_kernel"):
-            arg = re.match(r"ILi(\d+)E", mangled[found.end() + len(name):])
-            return f"{name}<{arg[1]}>" if arg else name
+        digits = found[0]
+        for k in range(len(digits)):  # a name's length may follow other digits (a file hash)
+            name = mangled[found.end():found.end() + int(digits[k:])]
+            if name.endswith("_kernel"):
+                arg = re.match(r"ILi(\d+)E", mangled[found.end() + len(name):])
+                return f"{name}<{arg[1]}>" if arg else name
     return mangled[:60]
 
 
@@ -265,9 +276,11 @@ def occupancy_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int, t
 
 
 def backward_parity(device) -> tuple[dict, dict]:
-    """K2 and K3 against joint_channels_bwd_reference at a ragged shape and
-    at the flagship training shape (bench.py's batch 32); times each kernel
-    and the plain backward at the flagship shape."""
+    """K2 against joint_channels_bwd_reference (float32) and K3 against
+    joint_channels_bwd_w_reference at bf16 (and, within K3_ENVELOPE, at
+    float32), at a ragged shape and at the flagship training shape
+    (bench.py's batch 32); times each kernel and its plain version at the
+    flagship shape."""
     names = ("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2")
     worst = {"K2": 0.0, "K3": 0.0}
     cases = (("ragged", (3, 37, 11, 96, 301), [37, 20, 1], [10, 4, 0]),
@@ -276,41 +289,64 @@ def backward_parity(device) -> tuple[dict, dict]:
     for name, shape, t_len, u_len in cases:
         args = occupancy_case(device, 3, *shape, t_len, u_len)
         ref = joint_channels_bwd_reference(*args)
+        ref_bf16 = joint_channels_bwd_w_reference(*args, mm_dtype=torch.bfloat16)
         got = joint_channels_bwd(*args)
         torch.cuda.synchronize()
         parts = []
         for i, (g_name, g, r) in enumerate(zip(names, got, ref)):
+            kernel = "K2" if i < 4 else "K3"
+            check(bool(torch.isfinite(g).all()), f"{name} {g_name} finite")
+            rel_f32 = ((g - r).norm() / r.norm().clamp(min=1e-30)).item()
+            if kernel == "K3":
+                r = ref_bf16[i - 4]
             err = (g - r).abs().max().item()
             scale = r.abs().max().item()
             rel = ((g - r).norm() / r.norm().clamp(min=1e-30)).item()
-            parts.append(f"{g_name} max abs {err:.3e} (of {scale:.3e}), rel L2 {rel:.3e}")
-            check(bool(torch.isfinite(g).all()), f"{name} {g_name} finite")
-            check(rel <= K23_REL_L2 and err <= K23_MAX_REL * scale,
-                  f"K2/K3 {name} {g_name}: rel L2 {rel} (tol {K23_REL_L2}), max abs {err} "
-                  f"(tol {K23_MAX_REL} x {scale})")
-            kernel = "K2" if i < 4 else "K3"
+            rel_tol, max_tol = (K23_REL_L2, K23_MAX_REL) if kernel == "K2" else (K3_REL_L2,
+                                                                                K3_MAX_REL)
+            check(rel <= rel_tol and err <= max_tol * scale,
+                  f"{kernel} {name} {g_name}: rel L2 {rel} (tol {rel_tol}), max abs {err} "
+                  f"(tol {max_tol} x {scale})")
+            if kernel == "K2":
+                parts.append(f"{g_name} max abs {err:.3e} (of {scale:.3e}), rel L2 {rel:.3e}")
+            else:
+                check(rel_f32 <= K3_ENVELOPE,
+                      f"K3 {name} {g_name} vs float32: rel L2 {rel_f32} (tol {K3_ENVELOPE})")
+                parts.append(f"{g_name} vs bf16 plain max abs {err:.3e} (of {scale:.3e}), rel L2 "
+                             f"{rel:.3e}; vs float32 rel L2 {rel_f32:.3e}")
             worst[kernel] = max(worst[kernel], err)
         say(f"K2/K3 parity {name} B,T,U1,H,V={shape}: " + "; ".join(parts)
-            + f" (rel L2 tol {K23_REL_L2}, max abs tol {K23_MAX_REL} x max|ref|): ok")
-        del ref, got
+            + f" (K2 vs float32: rel L2 tol {K23_REL_L2}, max abs tol {K23_MAX_REL} x max|ref|; "
+            f"K3 vs bf16: {K3_REL_L2}, {K3_MAX_REL} x max|ref|, vs float32: rel L2 tol "
+            f"{K3_ENVELOPE}): ok")
+        del ref, ref_bf16, got
     k2_ms = time_ms(lambda: joint_channels_bwd_in(*args), warmup=1, iters=3)
-    k3_ms = time_ms(lambda: joint_channels_bwd_w(*args), warmup=1, iters=3)
+    k3_ms = time_ms(lambda: joint_channels_bwd_w(*args), warmup=2, iters=10)
     plain_ms = time_ms(lambda: joint_channels_bwd_reference(*args), warmup=1, iters=2)
+    k3_plain_ms = time_ms(lambda: joint_channels_bwd_w_reference(*args, mm_dtype=torch.bfloat16),
+                          warmup=1, iters=2)
     flops = 2 * 2.0 * math.prod(shape)  # two lattice-sized products per kernel
     b, t, u1, h, v = shape
-    in_bytes = 4 * (2 * b * t * h + 2 * b * u1 * h + h * v + v + b * u1 + 4 * b * t * u1)
-    k2_bound = bound(flops, in_bytes + 4 * (2 * b * t * h + 2 * b * u1 * h), PEAK_F32)
-    k3_bound = bound(flops, in_bytes + 4 * (h * v + v), PEAK_F32)
-    say(f"K2 flagship train: {k2_ms:.3f} ms ({flops / k2_ms / 1e9:.1f} TFLOP/s); "
-        f"K3: {k3_ms:.3f} ms ({flops / k3_ms / 1e9:.1f} TFLOP/s); plain backward "
-        f"(all six gradients, chunk 32): {plain_ms:.3f} ms; bound of each "
+    rows = b * t * u1
+    factor_bytes = 4 * (2 * b * t * h + 2 * b * u1 * h + v + b * u1 + 4 * rows)
+    k2_bound = bound(flops, factor_bytes + 4 * h * v + 4 * (2 * b * t * h + 2 * b * u1 * h),
+                     PEAK_F32)
+    # K3 as the TPU kernel runs it: W2 read as bf16, the products at the bf16 peak
+    k3_bound = bound(flops, factor_bytes + 2 * h * v + 4 * (h * v + v), PEAK_BF16)
+    say(f"K2 flagship train: {k2_ms:.3f} ms ({flops / k2_ms / 1e9:.1f} TFLOP/s), bound "
         f"{k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']}, float32 "
-        f"{PEAK_F32 / 1e12:.0f} TFLOP/s; bf16 {flops / PEAK_BF16 * 1e3:.3f} ms)")
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s; bf16 {flops / PEAK_BF16 * 1e3:.3f} ms); plain backward "
+        f"(all six gradients, float32, chunk 32): {plain_ms:.3f} ms")
+    say(f"K3 flagship train: {k3_ms:.3f} ms ({flops / k3_ms / 1e9:.1f} TFLOP/s, wrapper "
+        f"included: padded bf16 W2^T, scratch, {-(-rows // k3_chunk_rows(v))} chunks of "
+        f"{k3_chunk_rows(v)} rows), bound {k3_bound['bound_ms']:.3f} ms "
+        f"({k3_bound['bound_by']}, bf16 {PEAK_BF16 / 1e12:.0f} TFLOP/s); bf16 plain version: "
+        f"{k3_plain_ms:.3f} ms")
     del args
     torch.cuda.empty_cache()
     return ({"max_abs_err": worst["K2"], "ms": k2_ms, "plain_ms": plain_ms, **k2_bound,
              "library_ms": None},
-            {"max_abs_err": worst["K3"], "ms": k3_ms, "plain_ms": plain_ms, **k3_bound,
+            {"max_abs_err": worst["K3"], "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound,
              "library_ms": None})
 
 
@@ -655,16 +691,18 @@ def k4_parity(device) -> dict:
         di = flash_attention_di(o, do)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out = sdpa(*leaves, scale=1.0)
+        # 20 launches each (3 warm-up): a launch's host work nears the device
+        # time of the smallest layer, so the first one is spread thin
         layer = {
-            "fwd": time_ms(lambda: flash_attention_fwd(q, k, v), warmup=2, iters=10),
-            "dkv": time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di), 2, 10),
-            "dq": time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, di=di), 2, 10),
-            "di": time_ms(lambda: flash_attention_di(o, do), 2, 10),
+            "fwd": time_ms(lambda: flash_attention_fwd(q, k, v), warmup=3, iters=20),
+            "dkv": time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di), 3, 20),
+            "dq": time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, di=di), 3, 20),
+            "di": time_ms(lambda: flash_attention_di(o, do), 3, 20),
             "plain_fwd": time_ms(lambda: flash_attention_reference(q, k, v), 1, 3),
             "plain_bwd": time_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 1, 3),
-            "sdpa_fwd": time_ms(lambda: sdpa(q, k, v, scale=1.0), 2, 10),
+            "sdpa_fwd": time_ms(lambda: sdpa(q, k, v, scale=1.0), 3, 20),
             "sdpa_bwd": time_ms(
-                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2, 10),
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3, 20),
         }
         flops = b * h * t * t * d
         # bytes: bf16 tensors read and written, f32 (B, h, T) rows (lse; lse and di)
@@ -873,7 +911,7 @@ def main() -> int:
          "source": "pika_tpu_torch/csrc/joint_channels_bwd.cu",
          "replaces": "pika_tpu/ops/rnnt_pallas.py:216", "launches": launches["K2"], **k2},
         {"name": "joint_channels_bwd_w", "route": "cuda",
-         "source": "pika_tpu_torch/csrc/joint_channels_bwd.cu",
+         "source": "pika_tpu_torch/csrc/joint_channels_bwd_w.cu",
          "replaces": "pika_tpu/ops/rnnt_pallas.py:284", "launches": launches["K3"], **k3},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "pika_tpu_torch/csrc/flash_attention.cu",

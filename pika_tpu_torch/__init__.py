@@ -5,7 +5,8 @@ the flagship training step: waveform -> fbank -> splice/CMVN (and, in
 training, dither and SpecAugment) -> TDNN-Transformer encoder -> LSTM
 prediction net -> factorized joint, feeding the RNN-T loss -- forward through
 the hand-written CUDA kernel in ``csrc/joint_channels_fwd.cu``, backward
-through those in ``csrc/joint_channels_bwd.cu`` -- then SGD-Nesterov with
+through those in ``csrc/joint_channels_bwd.cu`` and
+``csrc/joint_channels_bwd_w.cu`` -- then SGD-Nesterov with
 inf-norm clipping; and greedy decoding.  With ``attn_flash`` the encoder's
 attention core runs through the flash-attention kernels of
 ``csrc/flash_attention.cu``, forward and backward.  The entry points run on

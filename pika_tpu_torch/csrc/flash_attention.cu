@@ -24,29 +24,29 @@
 // than the card moves in that time at T ~ 1000.  Every block owns a tile of
 // rows -- queries (forward, dq) or keys (dk/dv) -- and loops over the other
 // axis itself: the TPU grid's sequential ("arbitrary") axis becomes this
-// loop, because CUDA blocks run in no order.  Nothing crosses blocks: no
+// loop, because CUDA blocks run in no order (the forward's persistent
+// blocks take one such tile after another).  Nothing crosses blocks: no
 // atomics, results identical from run to run.  Keys and queries at or past
 // T read as zeros and are masked in registers: this stands in for the
 // segment ids with which _flash pads T to the TPU block multiple.  Any
 // T >= 1; D = 64 or 128.
 //
-// The forward: a block of 4 warps owns 64 queries, each warp 16 rows, so
-// the online softmax's row max and row sum stay inside a quad of lanes.
-// Products are mma.sync.m16n8k16 from ldmatrix'd shared tiles whose rows
-// are padded by 16 bytes; the f32 accumulator of s becomes the bf16 A
-// operand of p v in registers.
-//
-// The backward (the section "backward" below has the details): warp-specialised
-// blocks of 128 rows, a TMA producer warp feeding a 4-stage ring of 64-row
-// tiles (3-D tensor maps over (BH, T, D), 128-byte swizzle, so a tile past
-// T reads zeros of its own head), and two consumer warpgroups that run
-// wgmma: s and dp with both operands in shared memory, the gradient
-// products with bf16 p or ds as the register A operand and the streamed
-// tile read transposed.  The dk/dv and dq kernels recompute p: 7 products
-// where a fused backward with a cross-block dq reduction would do 5.
+// All three kernels (the section "warp-specialised" below has the details)
+// are warp-specialised blocks of 128 rows: a TMA producer warp feeds a
+// 4-stage ring of 64-row tiles (128-row for the forward at D = 64; 3-D
+// tensor maps over (BH, T, D), 128-byte swizzle, so a tile past T reads
+// zeros of its own head), and two consumer warpgroups run wgmma: the score
+// products (s, dp) with both operands in shared memory, the value and
+// gradient products with bf16 p or ds as the register A operand and the
+// streamed tile read transposed.  The forward keeps the online softmax in
+// registers, overlaps one tile's p v with the next tile's scores, and is
+// persistent (one block per SM).  The dk/dv and dq kernels recompute p: 7
+// products where a fused backward with a cross-block dq reduction would do
+// 5.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -54,256 +54,40 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kRows = 64;      // rows a block owns: 16 per warp
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
+using hopper::exp2_approx;
+using hopper::pack_bf16;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + R) of a (T, D) bf16 matrix into a shared tile of
-// row stride D + 8, zero-filling rows at or past T.  16-byte loads.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int T) {
-  constexpr int kChunks = D / 8;
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
-}
-
-// The A operand (16 x 16, row-major) at rows row0.., columns col0.. of a
-// shared tile of row stride `stride`.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int stride, int row0,
-                                       int col0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, tile + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * stride + col0 +
-                     (lane >> 4) * 8);
-}
-
-// B operands of two n8 tiles (n = rows n0..n0+15 of the tile, k = columns
-// k0..k0+15): b[0], b[1] for rows n0..n0+7, b[2], b[3] for n0+8..n0+15.
-// The product then contracts over the tile's columns (s = q k^T).
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* tile, int stride, int n0,
-                                            int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * stride + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// B operands of two n8 tiles (k = rows k0..k0+15 of the tile, n = columns
-// n0..n0+15): b[0], b[1] for columns n0..n0+7, b[2], b[3] for n0+8..n0+15.
-// The product then contracts over the tile's rows (o = p v).
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile, int stride, int k0,
-                                            int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * stride + n0 +
-                           (lane >> 4) * 8);
-}
-
-// acc[N/8] (16 x N, f32) = A[16 rows at a_row0 of `a`] . B^T over D columns,
-// B's rows being rows 0..N-1 of `b`.
-template <int D, int N>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[N / 8][4], const bf16* a, int a_row0,
-                                              const bf16* b) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t af[4];
-    load_a(af, a, kStride, a_row0, kk);
-#pragma unroll
-    for (int nn = 0; nn < N; nn += 16) {
-      uint32_t bf[4];
-      load_b_rows(bf, b, kStride, nn, kk);
-      mma_16816(acc[nn / 8], af, bf[0], bf[1]);
-      mma_16816(acc[nn / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8] (16 x D, f32) += P . B, with P (16 x N) given as f32 accumulator
-// fragments (rounded to bf16 here) and B rows 0..N-1 of `b` (N x D).
-template <int D, int N>
-__device__ __forceinline__ void probs_dot_tile(float (&acc)[D / 8][4], const float (&p)[N / 8][4],
-                                               const bf16* b) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bf[4];
-      load_b_cols(bf, b, kStride, kk * 16, dn * 16);
-      mma_16816(acc[2 * dn], pa, bf[0], bf[1]);
-      mma_16816(acc[2 * dn + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 fragments as bf16 rows row0 + g (times scale_lo)
-// and row0 + g + 8 (times scale_hi) of a (T, D) matrix, g = lane / 4; rows
-// at or past T are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int row0,
-                                           int T, float scale_lo, float scale_hi) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + tig * 2;
-    if (r_lo < T)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)r_lo * D + col) =
-          pack_bf16(acc[j][0] * scale_lo, acc[j][1] * scale_lo);
-    if (r_hi < T)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)r_hi * D + col) =
-          pack_bf16(acc[j][2] * scale_hi, acc[j][3] * scale_hi);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int T) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kStride]
-  bf16* ks = qs + kRows * kStride;
-  bf16* vs = ks + kRows * kStride;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tig = lane & 3;
-  const int q0 = blockIdx.x * kRows;
-  const size_t base = (size_t)blockIdx.y * T * D;
-  load_tile<D, kRows>(qs, q + base, q0, T);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
-
-  for (int k0 = 0; k0 < T; k0 += kRows) {
-    __syncthreads();  // the last tile's readers are done (and qs is loaded)
-    load_tile<D, kRows>(ks, k + base, k0, T);
-    load_tile<D, kRows>(vs, v + base, k0, T);
-    __syncthreads();
-
-    float s[kRows / 8][4];
-    rows_dot_rows<D, kRows>(s, qs, warp * 16, ks);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + j * 8 + tig * 2 + (e & 1) >= T) s[j][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);  // 0 on the first tile
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f((s[j][e] - m[e >> 1]) * kLog2e);
-        l[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    probs_dot_tile<D, kRows>(acc, s, vs);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const int row0 = q0 + warp * 16;
-  store_rows<D>(o + base, acc, row0, T, 1.f / l[0], 1.f / l[1]);
-  if (tig == 0) {
-    const int g = lane >> 2;
-    if (row0 + g < T) lse[(size_t)blockIdx.y * T + row0 + g] = m[0] + logf(l[0]);
-    if (row0 + g + 8 < T) lse[(size_t)blockIdx.y * T + row0 + g + 8] = m[1] + logf(l[1]);
-  }
-}
-
-// ---- backward: warp-specialised TMA + wgmma kernels ------------------------
+// ---- warp-specialised TMA + wgmma kernels -----------------------------------
 //
-// A backward block is 3 warpgroups: warpgroup 0 is the producer (its first
-// warp keeps the ring filled, the other three idle; 40 registers each),
+// A block is 3 warpgroups: warpgroup 0 is the producer (its first warp
+// keeps the ring filled, the other three idle; 40 registers each),
 // warpgroups 1 and 2 are consumers with 232 registers, each owning 64 of
-// the block's 128 rows.  The block's own 128-row tile (keys for dk/dv,
-// queries for dq) is loaded once; the other axis streams through a ring of
-// kStages tiles of kN rows, each guarded by a "full" barrier (TMA bytes
-// landed, and for dk/dv the producer warp's lse and di stores) and an
-// "empty" barrier (all 256 consumer threads are done with it).
+// the block's 128 rows.  The block's own 128-row tile (queries for the
+// forward and dq, keys for dk/dv) is loaded once; the other axis streams
+// through a ring of kStages tiles of kN rows, each guarded by a "full"
+// barrier (TMA bytes landed, and for dk/dv the producer warp's lse and di
+// stores) and an "empty" barrier (all 256 consumer threads are done with it).
 //
 // A consumer warpgroup pipelines its tiles: it issues tile i's score
-// products (s, dp: shared-memory operands), then tile i - 1's gradient
-// products (register A operand, kept packed from the last iteration), so
-// that the tensor cores run those while its threads turn tile i's scores
-// into p and ds.  The scores live in registers that only wgmma writes
+// products (shared-memory operands), then tile i - 1's value or gradient
+// product (register A operand, kept packed from the last iteration), so
+// that the tensor cores run that while its threads turn tile i's scores
+// into p (and ds).  The scores live in registers that only wgmma writes
 // before it reads them; otherwise ptxas serializes every wgmma.  This is
-// the dq kernel at D = 64 (at D = 128 the extra fragments spill and it
-// runs slower).  The dk/dv kernel keeps two accumulators and has no
-// registers for a second tile's fragments: it overlaps within the tile
-// instead (p while dp's product runs, ds while dv's runs).  Measured
-// choices (NVIDIA H100, see PERF.md): 64-row streamed tiles (128-row tiles
-// need 64-wide score accumulators that ptxas serializes and spills), 40
-// producer registers (24 spill the producer's lse/di loop), 4 stages.
+// the forward and, at D = 64, the dq kernel (at D = 128 dq's extra
+// fragments spill and it runs slower).  The dk/dv kernel keeps two
+// accumulators and has no registers for a second tile's fragments: it
+// overlaps within the tile instead (p while dp's product runs, ds while
+// dv's runs).  Measured choices (NVIDIA H100, see PERF.md): 64-row streamed
+// tiles (128-row tiles need 64-wide score accumulators that ptxas
+// serializes and spills), 40 producer registers (24 spill the producer's
+// lse/di loop), 4 stages.
 
 constexpr int kBwdThreads = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int kBwdRows = 128;     // rows a backward block owns: 64 per consumer warpgroup
+constexpr int kBwdRows = 128;     // rows a block owns: 64 per consumer warpgroup
 constexpr int kN = 64;            // rows of a streamed tile
 constexpr int kStages = 4;        // depth of the streamed ring
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 40*128 + 232*256 <= 65536
@@ -324,15 +108,8 @@ struct BwdSmem {
   static constexpr uint32_t bytes = bars + (1 + 2 * kStages) * 8 + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
-}
-
-// The warpgroup of this thread, as a value the compiler can see is uniform
-// across the warp (setmaxnreg is ignored on branches it cannot prove so).
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-}
+using hopper::align_1024;
+using hopper::warpgroup;
 
 // TMA-load rows [row0, row0 + R) of head bh of a (BH, T, D) bf16 tensor into
 // the panel layout of hopper.cuh: R / 64 x D / 64 boxes of 64 x 64.
@@ -346,46 +123,47 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
       hopper::tma_load_3d(dst + p * R * 128 + rb * 64 * 128, map, bar, p * 64, row0 + rb * 64, bh);
 }
 
-// acc (64 x kN, f32) = the 64 rows at a_rows of a resident tile . the kN
+// acc (64 x N, f32) = the 64 rows at a_rows of a resident tile . the N
 // rows of a streamed tile, contracted over D (both K-major).
-template <int D>
-__device__ __forceinline__ void rows_dot_rows_wg(float (&acc)[kN / 2], uint32_t a_rows,
+template <int D, int N = kN>
+__device__ __forceinline__ void rows_dot_rows_wg(float (&acc)[N / 2], uint32_t a_rows,
                                                  uint32_t b_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    hopper::wgmma_ss<kN>(acc,
-                         hopper::desc_sw128(a_rows + (kk / 4) * kBwdRows * 128 + off, 16, 1024),
-                         hopper::desc_sw128(b_tile + (kk / 4) * kN * 128 + off, 16, 1024),
-                         kk > 0);
+    hopper::wgmma_ss(acc,
+                     hopper::desc_sw128(a_rows + (kk / 4) * kBwdRows * 128 + off, 16, 1024),
+                     hopper::desc_sw128(b_tile + (kk / 4) * N * 128 + off, 16, 1024), kk > 0);
   }
 }
 
-// The f32 accumulator x (64 x kN) rounded to bf16 as wgmma's register A
+// The f32 accumulator x (64 x N) rounded to bf16 as wgmma's register A
 // operand, one fragment per k16 step.
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[kN / 16][4], const float (&x)[kN / 2]) {
+template <int N = kN>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
-// acc (64 x D) += A . B: A (64 x kN) packed by pack_frags, B (kN x D) a
+// acc (64 x D) += A . B: A (64 x N) packed by pack_frags, B (N x D) a
 // streamed tile read MN-major.  The caller fences and commits.
-template <int D>
+template <int D, int N = kN>
 __device__ __forceinline__ void frags_dot_tile_wg(float (&acc)[D / 2],
-                                                  const uint32_t (&a)[kN / 16][4],
+                                                  const uint32_t (&a)[N / 16][4],
                                                   uint32_t b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk)
-    hopper::wgmma_rs<D>(acc, a[kk], hopper::desc_sw128(b_tile + kk * 16 * 128, kN * 128, 1024));
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::wgmma_rs<D>(acc, a[kk], hopper::desc_sw128(b_tile + kk * 16 * 128, N * 128, 1024));
 }
 
 // Write a consumer warpgroup's 64 x D accumulator as bf16 rows row0.. of a
-// (T, D) matrix, skipping rows at or past T.
+// (T, D) matrix, skipping rows at or past T; this thread's rows (lo, and
+// lo + 8) times scale_lo and scale_hi.
 template <int D>
 __device__ __forceinline__ void store_rows_wg(bf16* dst, const float (&acc)[D / 2], int row0,
-                                              int T) {
+                                              int T, float scale_lo = 1.f, float scale_hi = 1.f) {
   const int tid = threadIdx.x & 127, lane = tid & 31;
   const int r_lo = row0 + (tid >> 5) * 16 + (lane >> 2), r_hi = r_lo + 8;
 #pragma unroll
@@ -393,10 +171,10 @@ __device__ __forceinline__ void store_rows_wg(bf16* dst, const float (&acc)[D / 
     const int col = j * 8 + (lane & 3) * 2;
     if (r_lo < T)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r_lo * D + col) =
-          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+          pack_bf16(acc[4 * j] * scale_lo, acc[4 * j + 1] * scale_lo);
     if (r_hi < T)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r_hi * D + col) =
-          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+          pack_bf16(acc[4 * j + 2] * scale_hi, acc[4 * j + 3] * scale_hi);
   }
 }
 
@@ -412,10 +190,188 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int full_count) {
   __syncthreads();
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// The forward's streamed tiles and ring: at D = 64, 128 keys a tile (twice
+// the backward's, which keeps two score accumulators; here the registers
+// hold one of 128 columns, and each tile's fixed costs -- barriers, row-max
+// shuffles, the rescale of o -- are paid half as often: 12% faster on an
+// H100); at D = 128, 64 keys (128 spill and serialize the wgmmas there); 4
+// stages.  Offsets: two Q tiles (the current item's and the next's), the K
+// and V rings, the barriers q_full[2], q_empty[2], full[S], empty[S].
+template <int D>
+struct FwdSmem {
+  static constexpr int N = D == 64 ? 128 : 64, S = 4;
+  static constexpr uint32_t kResident = kBwdRows * D * 2;
+  static constexpr uint32_t kStream = N * D * 2;
+  static constexpr uint32_t res0 = 0, ring0 = 2 * kResident, ring1 = ring0 + S * kStream;
+  static constexpr uint32_t bars = ring1 + S * kStream;
+  static constexpr uint32_t bytes = bars + (4 + 2 * S) * 8 + 1024;  // + alignment slack
+};
+
+// The forward: persistent blocks, one per SM, walk the work items (head bh,
+// 128 queries) gridDim.x apart; consecutive items of a block share a head,
+// so its K and V stay in L2.  The producer loads an item's Q into one of
+// two resident buffers while the consumers still work on the last item,
+// then streams the item's keys (K, V) N at a time through the ring, whose
+// stage count runs on across items; so the next item's loads overlap this
+// item's last tile and epilogue.  Per tile a consumer warpgroup computes
+// s = q k^T from shared memory, keeps the online row max m and row sum l
+// in f32, turns s into p = exp(s - m) relative to the running max,
+// rescales o by exp(m_old - m), and adds bf16(p) v with p as the register A
+// operand and V read MN-major.  Tile i + 1's scores are issued before tile
+// i's p v, so the two overlap; o is rescaled once p v of the last tile has
+// landed.  Each quad of lanes holds a row's keys of a tile, so the row max
+// and sum need two shuffles.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int T, int n_items) {
+  using L = FwdSmem<D>;
+  constexpr int N = L::N, S = L::S;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + S;
+  const int q_tiles = (T + kBwdRows - 1) / kBwdRows;
+  const int n_tiles = (T + N - 1) / N;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&q_full[b], 1);
+      hopper::mbar_init(&q_empty[b], 2 * 128);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg_idx = warpgroup();
+
+  if (wg_idx == 0) {  // producer
+    hopper::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int g = 0;  // streamed tiles issued so far, over all items
+      for (int j = 0, item = blockIdx.x; item < n_items; ++j, item += gridDim.x) {
+        const int bh = item / q_tiles, q0 = (item % q_tiles) * kBwdRows, qb = j & 1;
+        hopper::mbar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&q_full[qb], L::kResident);
+        tma_tile<D, kBwdRows>(smem + L::res0 + qb * L::kResident, &tq, &q_full[qb], q0, bh);
+        for (int i = 0; i < n_tiles; ++i, ++g) {
+          const int s = g % S;
+          hopper::mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * L::kStream);
+          tma_tile<D, N>(smem + L::ring0 + s * L::kStream, &tk, &full[s], i * N, bh);
+          tma_tile<D, N>(smem + L::ring1 + s * L::kStream, &tv, &full[s], i * N, bh);
+        }
+      }
+    }
+  } else {  // consumers
+    hopper::regs_alloc<kConsumerRegs>();
+    const int wg = wg_idx - 1, t = threadIdx.x & 3;
+    int g = 0;  // streamed tiles consumed so far, over all items
+    for (int j = 0, item = blockIdx.x; item < n_items; ++j, item += gridDim.x) {
+      const int bh = item / q_tiles, q0 = (item % q_tiles) * kBwdRows, qb = j & 1;
+      // this wg's 64 queries
+      const uint32_t qs = hopper::smem_addr(smem + L::res0 + qb * L::kResident) + wg * 64 * 128;
+      float o_acc[D / 2];
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) o_acc[c] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max of this thread's two rows
+      float l[2] = {0.f, 0.f};              // this thread's share of their running sums
+      uint32_t pa[N / 16][4];               // bf16 p of the last tile
+      auto issue_scores = [&](float(&sc)[N / 2], int gi) {
+        const int s = gi % S;
+        hopper::mbar_wait(&full[s], (gi / S) & 1);
+        hopper::wgmma_fence();
+        rows_dot_rows_wg<D, N>(sc, qs, hopper::smem_addr(smem + L::ring0 + s * L::kStream));
+        hopper::wgmma_commit();
+      };
+      auto issue_values = [&](int gi) {  // o += p v of the tile counted gi
+        hopper::fence_regs(o_acc);
+        hopper::wgmma_fence();
+        frags_dot_tile_wg<D, N>(o_acc, pa,
+                                hopper::smem_addr(smem + L::ring1 + (gi % S) * L::kStream));
+        hopper::wgmma_commit();
+      };
+      // s -> p in place for tile i; alpha returns the factor by which o
+      // must be rescaled (0 on the first tile, where o is still 0)
+      auto softmax = [&](float(&sc)[N / 2], int i, float(&alpha)[2]) {
+        const int past = T - i * N;  // keys of this tile below T
+        if (past < N) {              // the last tile: mask the keys at or past T
+#pragma unroll
+          for (int c = 0; c < N / 2; ++c)
+            if ((c >> 2) * 8 + t * 2 + (c & 1) >= past) sc[c] = -INFINITY;
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int c = 0; c < N / 2; ++c) mx[(c >> 1) & 1] = fmaxf(mx[(c >> 1) & 1], sc[c]);
+        float ms[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = exp2_approx((m[r] - mx[r]) * kLog2e);
+          m[r] = mx[r];
+          ms[r] = mx[r] * kLog2e;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int c = 0; c < N / 2; ++c) {
+          sc[c] = exp2_approx(fmaf(sc[c], kLog2e, -ms[(c >> 1) & 1]));
+          l[(c >> 1) & 1] += sc[c];
+        }
+      };
+      hopper::mbar_wait(&q_full[qb], (j >> 1) & 1);
+
+      for (int i = 0; i < n_tiles; ++i) {
+        float sc[N / 2], alpha[2];
+        issue_scores(sc, g + i);
+        if (i > 0) {
+          issue_values(g + i - 1);
+          hopper::wgmma_wait<1>();  // the scores have landed; tile i - 1's p v may run
+        } else {
+          hopper::wgmma_wait<0>();
+        }
+        if (i == n_tiles - 1) hopper::mbar_arrive(&q_empty[qb]);  // the item's last Q read
+        hopper::fence_regs(sc);
+        softmax(sc, i, alpha);
+        if (i > 0) {  // tile i - 1's product is done with its tile and fragments
+          hopper::wgmma_wait<0>();
+          hopper::mbar_arrive(&empty[(g + i - 1) % S]);
+          hopper::fence_regs(o_acc);
+          // o *= alpha, skipped where no row of the warp found a new max
+          if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+            for (int c = 0; c < D / 2; ++c) o_acc[c] *= alpha[(c >> 1) & 1];
+          }
+        }
+        pack_frags<N>(pa, sc);
+      }
+      issue_values(g + n_tiles - 1);
+      hopper::wgmma_wait<0>();
+      hopper::mbar_arrive(&empty[(g + n_tiles - 1) % S]);
+      hopper::fence_regs(o_acc);
+      g += n_tiles;
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const int row0 = q0 + wg * 64;
+      store_rows_wg<D>(o + (size_t)bh * T * D, o_acc, row0, T, 1.f / l[0], 1.f / l[1]);
+      const int lane = threadIdx.x & 31;
+      if (t == 0) {
+        const int row = row0 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+        if (row < T) lse[(size_t)bh * T + row] = m[0] + logf(l[0]);
+        if (row + 8 < T) lse[(size_t)bh * T + row + 8] = m[1] + logf(l[1]);
+      }
+    }
+  }
 }
 
 // dk, dv: a block owns 128 keys (K, V resident) and streams the queries
@@ -648,8 +604,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-constexpr size_t tile_bytes(int D, int rows) { return (size_t)rows * (D + 8) * sizeof(bf16); }
-
 // Shared memory above 48 KB is dynamic only, after this opt-in.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -660,53 +614,12 @@ bool bad_shape(int BH, int T, int D) {
   return BH <= 0 || BH > 65535 || T <= 0 || (D != 64 && D != 128);
 }
 
-dim3 grid_of(int BH, int T) { return dim3((unsigned)((T + kRows - 1) / kRows), (unsigned)BH); }
-
-template <int D>
-cudaError_t fwd(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                int BH, int T) {
-  const size_t smem = 3 * tile_bytes(D, kRows);
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D><<<grid_of(BH, T), kThreads, smem, s>>>(q, k, v, o, lse, T);
-  return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda at link time.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 3-D map over a (BH, T, D) bf16 tensor with 64 x 64 boxes and the
 // 128-byte swizzle: a box past T reads zeros of the same head.
 bool tile_map(CUtensorMap* map, const void* base, int BH, int T, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::bf16_map(map, base, 3, dims, strides);
 }
 
 dim3 bwd_grid(int BH, int T) {
@@ -714,10 +627,30 @@ dim3 bwd_grid(int BH, int T) {
 }
 
 template <int D>
+cudaError_t fwd(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                int BH, int T) {
+  CUtensorMap tq, tk, tv;
+  if (!tile_map(&tq, q, BH, T, D) || !tile_map(&tk, k, BH, T, D) || !tile_map(&tv, v, BH, T, D))
+    return cudaErrorInvalidValue;
+  const size_t smem = FwdSmem<D>::bytes;
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const long long n_items = (long long)BH * ((T + kBwdRows - 1) / kBwdRows);
+  if (n_items > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_kernel<D><<<(unsigned)(n_items < sms ? n_items : sms), kBwdThreads, smem, s>>>(
+      tq, tk, tv, o, lse, T, (int)n_items);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t bwd_dq(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                    const float* lse, const float* di, bf16* dq, int BH, int T) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode_tiled() || !tile_map(&tq, q, BH, T, D) || !tile_map(&tk, k, BH, T, D) ||
+  if (!tile_map(&tq, q, BH, T, D) || !tile_map(&tk, k, BH, T, D) ||
       !tile_map(&tv, v, BH, T, D) || !tile_map(&tdo, dout, BH, T, D))
     return cudaErrorInvalidValue;
   const size_t smem = BwdSmem<D>::bytes;
@@ -733,7 +666,7 @@ cudaError_t bwd_dkv(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
                     const bf16* dout, const float* lse, const float* di, bf16* dk, bf16* dv,
                     int BH, int T) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode_tiled() || !tile_map(&tq, q, BH, T, D) || !tile_map(&tk, k, BH, T, D) ||
+  if (!tile_map(&tq, q, BH, T, D) || !tile_map(&tk, k, BH, T, D) ||
       !tile_map(&tv, v, BH, T, D) || !tile_map(&tdo, dout, BH, T, D))
     return cudaErrorInvalidValue;
   const size_t smem = BwdSmem<D>::bytes;

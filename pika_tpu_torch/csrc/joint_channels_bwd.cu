@@ -1,55 +1,41 @@
-// K2 and K3: the backward of the fused RNN-T joint channels, written for
+// K2: the input gradients of the fused RNN-T joint channels, written for
 // Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels pika_tpu/ops/rnnt_pallas.py:_bwd_in_kernel
-// (K2) and _bwd_w_kernel (K3), both launched by joint_channels_pallas_bwd.
-// Given K1's lse and the cotangents d_lse, d_zb, d_zy of the three channels,
-// for every lattice cell (b, t, u) both recompute
+// Replaces the Pallas TPU kernel pika_tpu/ops/rnnt_pallas.py:_bwd_in_kernel,
+// launched by joint_channels_pallas_bwd (K3, its weight gradient, is in
+// joint_channels_bwd_w.cu).  Given K1's lse and the cotangents d_lse, d_zb,
+// d_zy of the three channels, for every lattice cell (b, t, u) it
+// recomputes
 //
 //     h  = tanh(ax[b,t] + ay[b,u]) * sigmoid(gx[b,t] + gy[b,u])       (H,)
 //     z  = h . W2 + b2                                                (V,)
 //     dz = d_lse * exp(min(z - lse, 40)) + [v = 0] d_zb + [v = label] d_zy
 //
 // (blank and label are the same column where label = 0, as in column U: both
-// terms land on it).  Then
+// terms land on it).  Then dh = dz . W2^T; dpre = dh * sig * (1 - tanh^2),
+// dgate = dh * tanh * sig * (1 - sig); d_ax, d_gx sum them over u, d_ay,
+// d_gy over t.
 //
-//   K2: dh = dz . W2^T; dpre = dh * sig * (1 - tanh^2), dgate = dh * tanh *
-//       sig * (1 - sig); d_ax, d_gx sum them over u, d_ay, d_gy over t.
-//   K3: dW2 = sum over cells of h^T dz, db2 = sum over cells of dz.
+// What bounds it on the H100: two (R x H) x (H x V) sized products, R =
+// B*T*U1 cells, 2*R*H*V flops each (2 TFLOP in all at B=8, T=239, U1=41,
+// H=1024, V=6268; 8 TFLOP at B=32), here in float32 on the SIMT FMA units.
 //
-// What bounds them on the H100: each does two (R x H) x (H x V) sized
-// products, R = B*T*U1 cells, 2*R*H*V flops each (2 TFLOP per kernel at
-// B=8, T=239, U1=41, H=1024, V=6268; 8 TFLOP at B=32), here in float32 on
-// the SIMT FMA units.  What the designs do about it:
-//
-// K2.  The TPU kernel carries dh across a sequential V grid axis in VMEM.
-//   Here one block owns tile_t x tile_u cells (24 at H <= 1040, 16 at
-//   H <= 1560, 8 at H <= 3120: an f32 h tile and an f32 dh tile of that many
-//   rows share the 227 KB of shared memory) and walks all of V itself:
-//   for each 256-column V tile it recomputes z as K1 does (warp w owns
-//   rows, lane l owns 8 columns, W2 double-buffered through shared memory),
-//   forms dz into shared memory (aliasing the spent W2 staging buffer), and
-//   adds dz . W2^T into the dh tile, reading W2^T (a transposed copy the
-//   wrapper makes) straight from L2, four coalesced H columns per thread.
-//   The sums over u and over t cross block boundaries, so the block writes
-//   per-tile partials (B, T, n_u_tiles, H) and (B, n_t_tiles, U1, H) that
-//   the wrapper adds up with torch; nothing carries a running sum.
-//
-// K3.  The TPU kernel keeps one dW2 tile resident across every lattice tile
-//   because its grid runs in order.  Here a block owns a 32-column V tile
-//   and one of S parts of the cell rows, and keeps dW2[:, tile] for 1024
-//   values of H in registers (4 x 32 per thread).  For each chunk of 48,
-//   32 or 16 rows (as many as shared memory holds at this H; more rows
-//   means more reuse of each staged W2 value) it loads their h rows from
-//   the wrapper's float32 h cache, recomputes z for its 32 columns, forms
-//   dz, and adds h^T dz into the registers.  The z recompute is needed once
-//   per (cell, column), as in the reference, for H <= 1024; a larger H
-//   takes one more pass over the rows per 1024 values of H, each
-//   recomputing z.  Blocks write an (S, H, V) and an (S, V) partial that
-//   the wrapper sums: deterministic, no atomics.
+// The TPU kernel carries dh across a sequential V grid axis in VMEM.  Here
+// one block owns tile_t x tile_u cells (24 at H <= 1040, 16 at H <= 1560, 8
+// at H <= 3120: an f32 h tile and an f32 dh tile of that many rows share
+// the 227 KB of shared memory) and walks all of V itself: for each
+// 256-column V tile it recomputes z as K1 does (warp w owns rows, lane l
+// owns 8 columns, W2 double-buffered through shared memory), forms dz into
+// shared memory (aliasing the spent W2 staging buffer), and adds dz . W2^T
+// into the dh tile, reading W2^T (a transposed copy the wrapper makes)
+// straight from L2, four coalesced H columns per thread.  The sums over u
+// and over t cross block boundaries, so the block writes per-tile partials
+// (B, T, n_u_tiles, H) and (B, n_t_tiles, U1, H) that the wrapper adds up
+// with torch; nothing carries a running sum.
 //
 // Ragged T, U1, V and H are masked here; the caller pads nothing.  bf16
-// wgmma and TMA, and fusing K2 with K3 so dz is formed once, are later work.
+// wgmma and TMA, and reading K3's dz chunks so z is formed once per
+// backward, are later work.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -63,13 +49,6 @@ constexpr int kCols = 256;                              // V tile
 constexpr int kK = 16;                                  // depth of one staged W2 chunk
 constexpr int kChunkPerThread = kK * kCols / kThreads;  // 16
 constexpr int kDhCols = 4;                              // H columns of dh per thread
-
-// K3
-constexpr int kVw = 32;                              // V tile: one column per lane
-constexpr int kKw = 32;                              // depth of one staged W2 chunk
-constexpr int kStagePerThread = kKw * kVw / kThreads;  // 4
-constexpr int kHPerThread = 4;                       // H values of dW2 per thread
-constexpr int kHPass = kHPerThread * kThreads;       // 1024 H values per pass
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -364,172 +343,6 @@ cudaError_t launch_in(cudaStream_t stream, size_t smem, dim3 grid, const float* 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K3: gradients to W2 and b2
-// ---------------------------------------------------------------------------
-
-template <int kRowsPerWarp>
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_w_kernel(const float* __restrict__ hcache, const float* __restrict__ w2,
-             const float* __restrict__ b2, const int* __restrict__ labels,
-             const float* __restrict__ lse, const float* __restrict__ d_lse,
-             const float* __restrict__ d_zb, const float* __restrict__ d_zy,
-             float* __restrict__ dw2_p, float* __restrict__ db2_p,
-             long long rows_total, long long rows_per_part, int T, int U1, int H, int Hp,
-             int V) {
-  constexpr int kRows = kRowsPerWarp * kWarps;  // rows per chunk
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [kRows][Hp]
-  float* ws = hs + (size_t)kRows * Hp;          // [2][kKw][kVw] W2 staging
-  float* dzs = ws + 2 * kKw * kVw;              // [kRows][kVw]
-  float* red = dzs + kRows * kVw;               // [kWarps][kVw] db2 reduction
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int v0 = blockIdx.x * kVw;
-  const int part = blockIdx.y;
-  const long long row_begin = part * rows_per_part;
-  const long long row_end = min(rows_total, row_begin + rows_per_part);
-  const int col = v0 + lane;  // this lane's column in the z pass
-  const float bias = col < V ? b2[col] : 0.f;
-  const int n_chunks = Hp / kKw;
-  float db_acc = 0.f;
-
-  for (int hp0 = 0; hp0 < H; hp0 += kHPass) {
-    float acc[kHPerThread][kVw];
-#pragma unroll
-    for (int j = 0; j < kHPerThread; ++j)
-#pragma unroll
-      for (int c = 0; c < kVw; ++c) acc[j][c] = 0.f;
-
-    for (long long c0 = row_begin; c0 < row_end; c0 += kRows) {
-      // 1. h rows of this chunk, from the cache; 0 past the part or past H.
-      for (int r = warp; r < kRows; r += kWarps) {
-        const long long row = c0 + r;
-        const float* src = hcache + row * H;
-        float* dst = hs + (size_t)r * Hp;
-        for (int k = lane; k < Hp; k += 32) dst[k] = (row < row_end && k < H) ? src[k] : 0.f;
-      }
-
-      // 2. z for this warp's rows and this lane's column; W2 staged per kKw rows.
-      float stage[kStagePerThread];
-      auto load_chunk = [&](int k0) {
-#pragma unroll
-        for (int j = 0; j < kStagePerThread; ++j) {
-          const int idx = j * kThreads + tid;
-          const int k = k0 + idx / kVw, c = v0 + idx % kVw;
-          stage[j] = (k < H && c < V) ? w2[(size_t)k * V + c] : 0.f;
-        }
-      };
-      auto store_chunk = [&](float* dst) {
-#pragma unroll
-        for (int j = 0; j < kStagePerThread; ++j) dst[j * kThreads + tid] = stage[j];
-      };
-      float zacc[kRowsPerWarp];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) zacc[i] = 0.f;
-      load_chunk(0);
-      store_chunk(ws);
-      __syncthreads();  // also publishes the h rows
-      const float* hw = hs + (size_t)warp * kRowsPerWarp * Hp;
-      for (int c = 0; c < n_chunks; ++c) {
-        const float* wcur = ws + (c & 1) * kKw * kVw;
-        if (c + 1 < n_chunks) load_chunk((c + 1) * kKw);
-#pragma unroll
-        for (int kk = 0; kk < kKw; kk += 4) {
-          float w[4];
-#pragma unroll
-          for (int s = 0; s < 4; ++s) w[s] = wcur[(kk + s) * kVw + lane];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) {
-            const float4 hv = *reinterpret_cast<const float4*>(hw + (size_t)i * Hp + c * kKw + kk);
-            zacc[i] = fmaf(hv.x, w[0], fmaf(hv.y, w[1], fmaf(hv.z, w[2], fmaf(hv.w, w[3], zacc[i]))));
-          }
-        }
-        if (c + 1 < n_chunks) store_chunk(ws + ((c + 1) & 1) * kKw * kVw);
-        __syncthreads();
-      }
-
-      // 3. dz into shared memory; 0 past V and past the part.  db2 from the first pass.
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp * kRowsPerWarp + i;
-        const long long row = c0 + r;
-        float dz = 0.f;
-        if (row < row_end && col < V) {
-          const long long u = row % U1;
-          const long long b = row / ((long long)T * U1);
-          dz = dlogit(zacc[i] + bias, col, lse[row], d_lse[row], d_zb[row], d_zy[row],
-                      labels[b * U1 + u]);
-        }
-        if (hp0 == 0) db_acc += dz;
-        dzs[r * kVw + lane] = dz;
-      }
-      __syncthreads();
-
-      // 4. acc[k][:] += h[r][k] * dz[r][:] over the chunk's rows.
-      for (int r = 0; r < kRows; ++r) {
-        float hk[kHPerThread];
-#pragma unroll
-        for (int j = 0; j < kHPerThread; ++j) {
-          const int k = hp0 + j * kThreads + tid;
-          hk[j] = k < Hp ? hs[(size_t)r * Hp + k] : 0.f;
-        }
-        const float4* dz4 = reinterpret_cast<const float4*>(dzs + r * kVw);
-#pragma unroll
-        for (int q = 0; q < kVw / 4; ++q) {
-          const float4 d = dz4[q];
-#pragma unroll
-          for (int j = 0; j < kHPerThread; ++j) {
-            acc[j][4 * q + 0] = fmaf(hk[j], d.x, acc[j][4 * q + 0]);
-            acc[j][4 * q + 1] = fmaf(hk[j], d.y, acc[j][4 * q + 1]);
-            acc[j][4 * q + 2] = fmaf(hk[j], d.z, acc[j][4 * q + 2]);
-            acc[j][4 * q + 3] = fmaf(hk[j], d.w, acc[j][4 * q + 3]);
-          }
-        }
-      }
-      __syncthreads();  // hs and dzs are rewritten by the next chunk
-    }
-
-    // 5. This pass's H rows of the block's dW2 partial.
-#pragma unroll
-    for (int j = 0; j < kHPerThread; ++j) {
-      const int k = hp0 + j * kThreads + tid;
-      if (k >= H) continue;
-      float* dst = dw2_p + ((long long)part * H + k) * V;
-#pragma unroll
-      for (int c = 0; c < kVw; ++c)
-        if (v0 + c < V) dst[v0 + c] = acc[j][c];
-    }
-  }
-  // 6. db2: this lane's column summed over the warps.
-  red[warp * kVw + lane] = db_acc;
-  __syncthreads();
-  if (tid < kVw && v0 + tid < V) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w * kVw + tid];
-    db2_p[(long long)part * V + v0 + tid] = sum;
-  }
-}
-
-size_t w_smem_bytes(int rows, int Hp) {
-  return ((size_t)rows * Hp + 2 * kKw * kVw + (size_t)rows * kVw + kWarps * kVw) * sizeof(float);
-}
-
-template <int kRowsPerWarp>
-cudaError_t launch_w(cudaStream_t stream, size_t smem, dim3 grid, const float* hcache,
-                     const float* w2, const float* b2, const int* labels, const float* lse,
-                     const float* d_lse, const float* d_zb, const float* d_zy, float* dw2_p,
-                     float* db2_p, long long rows, long long rows_per_part, int T, int U1, int H,
-                     int Hp, int V) {
-  cudaError_t err = cudaFuncSetAttribute(bwd_w_kernel<kRowsPerWarp>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  bwd_w_kernel<kRowsPerWarp><<<grid, kThreads, smem, stream>>>(
-      hcache, w2, b2, labels, lse, d_lse, d_zb, d_zy, dw2_p, db2_p, rows, rows_per_part, T, U1,
-      H, Hp, V);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  The launchers run on `stream` and
@@ -591,37 +404,4 @@ extern "C" int pika_joint_channels_bwd_in(int device, void* stream, const float*
                         d_zy, dax_p, dgx_p, day_p, dgy_p, T, U1, H, Hp, V, tile_t, tile_u, nt, nu);
   return launch_in<1>(s, smem, grid, ax, gx, ay, gy, w2, w2t, b2, labels, lse, d_lse, d_zb,
                       d_zy, dax_p, dgx_p, day_p, dgy_p, T, U1, H, Hp, V, tile_t, tile_u, nt, nu);
-}
-
-// K3.  hcache: (B, T, U1, H) float32 h rows; dw2_p: (parts, H, V); db2_p:
-// (parts, V).  Rows per chunk: 48 while they fit in shared memory (H <= 1120),
-// then 32 (H <= 1712), then 16 (H <= 3456; K2 stops at 3120).
-extern "C" int pika_joint_channels_bwd_w(int device, void* stream, const float* hcache,
-                                         const float* w2, const float* b2, const int* labels,
-                                         const float* lse, const float* d_lse, const float* d_zb,
-                                         const float* d_zy, float* dw2_p, float* db2_p, int B,
-                                         int T, int U1, int H, int V, int parts) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (B <= 0 || T <= 0 || U1 <= 0 || H <= 0 || V <= 0 || parts <= 0 || parts > 65535)
-    return cudaErrorInvalidValue;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t limit = (size_t)optin;
-  const int Hp = (H + kKw - 1) / kKw * kKw;
-  const long long rows = (long long)B * T * U1;
-  const long long rows_per_part = (rows + parts - 1) / parts;
-  const dim3 grid((unsigned)((V + kVw - 1) / kVw), (unsigned)parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_smem_bytes(6 * kWarps, Hp) <= limit)
-    return launch_w<6>(s, w_smem_bytes(6 * kWarps, Hp), grid, hcache, w2, b2, labels, lse,
-                       d_lse, d_zb, d_zy, dw2_p, db2_p, rows, rows_per_part, T, U1, H, Hp, V);
-  if (w_smem_bytes(4 * kWarps, Hp) <= limit)
-    return launch_w<4>(s, w_smem_bytes(4 * kWarps, Hp), grid, hcache, w2, b2, labels, lse,
-                       d_lse, d_zb, d_zy, dw2_p, db2_p, rows, rows_per_part, T, U1, H, Hp, V);
-  if (w_smem_bytes(2 * kWarps, Hp) <= limit)
-    return launch_w<2>(s, w_smem_bytes(2 * kWarps, Hp), grid, hcache, w2, b2, labels, lse,
-                       d_lse, d_zb, d_zy, dw2_p, db2_p, rows, rows_per_part, T, U1, H, Hp, V);
-  return cudaErrorInvalidValue;
 }

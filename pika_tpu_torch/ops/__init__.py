@@ -18,6 +18,7 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_in,
     joint_channels_bwd_reference,
     joint_channels_bwd_w,
+    joint_channels_bwd_w_reference,
     joint_channels_reference,
 )
 from pika_tpu_torch.ops.rnnt_loss import (

@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
     lib.pika_joint_channels_bwd_in_tile.restype = i
     lib.pika_joint_channels_bwd_in.argtypes = [i, p] + [p] * 16 + [i] * 7
     lib.pika_joint_channels_bwd_in.restype = i
-    lib.pika_joint_channels_bwd_w.argtypes = [i, p] + [p] * 10 + [i] * 6
+    lib.pika_joint_channels_bwd_w.argtypes = [i, p] + [p] * 15 + [i] * 6
     lib.pika_joint_channels_bwd_w.restype = i
     lib.pika_flash_attention_fwd.argtypes = [i, p] + [p] * 5 + [i] * 3
     lib.pika_flash_attention_fwd.restype = i

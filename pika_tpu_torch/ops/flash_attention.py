@@ -23,13 +23,14 @@ Design (``csrc/flash_attention.cu`` has the details): every block owns a
 tile of queries (forward, dq) or keys (dk/dv) and loops over the other axis
 itself; keys and queries at or past T are masked in the kernel where the
 JAX wrapper pads T with segment ids; nothing crosses blocks, so there are
-no atomics and the results are identical from run to run.  The forward is
-4 warps of mma.sync over ldmatrix'd shared tiles with the online softmax in
-registers.  The two backward kernels are Hopper kernels: a TMA producer
-warp streams 64-row tiles through a 4-stage shared-memory ring while two
-consumer warpgroups run wgmma, with p and ds as the register operand of
-the gradient products.  di = sum(o * do) is taken with torch, once per
-backward (``flash_attention_di``), and handed to both kernels.
+no atomics and the results are identical from run to run.  All three are
+Hopper kernels: a TMA producer warp streams key or query tiles through a
+4-stage shared-memory ring while two consumer warpgroups run wgmma, with p
+and ds as the register operand of the value and gradient products; the
+forward keeps the online softmax in registers and its blocks are
+persistent, one per SM, so one work item's loads overlap the last one's
+tail.  di = sum(o * do) is taken with torch, once per backward
+(``flash_attention_di``), and handed to both backward kernels.
 
 The plain versions materialize the (B, h, T, T) scores; they round p to
 bf16 relative to the row's max, the kernel relative to the running max of
@@ -80,36 +81,38 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do):
 def _check_cuda(what, **tensors):
     """Raise unless every tensor is a contiguous bf16 (B, h, T, d) CUDA
     tensor of the first one's shape and device, d in HEAD_DIMS; returns
-    (B*h, T, d)."""
+    (B*h, T, d).  Runs on every launch, so each attribute is read once."""
     first = next(iter(tensors.values()))
-    if first.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {first.device}")
-    if first.dim() != 4 or first.shape[-1] not in HEAD_DIMS or first.shape[2] == 0:
+    device, shape = first.device, first.shape
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    if len(shape) != 4 or shape[3] not in HEAD_DIMS or shape[2] == 0:
         raise ValueError(f"{what}: q must be (B, heads, T > 0, d) with d in {HEAD_DIMS}, "
-                         f"got {tuple(first.shape)}")
+                         f"got {tuple(shape)}")
     for name, x in tensors.items():
-        if x.device != first.device or x.dtype != torch.bfloat16 or x.shape != first.shape:
-            raise ValueError(f"{what}: {name} must be bfloat16 {tuple(first.shape)} on "
-                             f"{first.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if x.dtype != torch.bfloat16 or x.shape != shape or x.device != device:
+            raise ValueError(f"{what}: {name} must be bfloat16 {tuple(shape)} on "
+                             f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
-    b, h, t, d = first.shape
+    b, h, t, d = shape
     return b * h, t, d
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_fwd(q, k, v):
     """K4 forward: ``(o, lse)`` as ``flash_attention_reference``."""
-    if q.device.type == "cpu":
+    device = q.device
+    if device.type == "cpu":
         return flash_attention_reference(q, k, v)
     bh, t, d = _check_cuda("flash_attention_fwd", q=q, k=k, v=v)
     o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
     rc = cuda_build.library().pika_flash_attention_fwd(
-        q.device.index, _stream(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        device.index, _stream(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, t, d)
     cuda_build.check(rc, f"flash_attention_fwd launch (BH={bh}, T={t}, d={d})")
     flash_attention_fwd.launches += 1
@@ -145,8 +148,8 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, di=None):
         di = flash_attention_di(o, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = cuda_build.library().pika_flash_attention_bwd_dkv(
-        q.device.index, _stream(q), *(x.data_ptr() for x in (q, k, v, do, lse, di, dk, dv)),
-        bh, t, d)
+        q.device.index, _stream(q.device),
+        *(x.data_ptr() for x in (q, k, v, do, lse, di, dk, dv)), bh, t, d)
     cuda_build.check(rc, f"flash_attention_bwd_dkv launch (BH={bh}, T={t}, d={d})")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -161,7 +164,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, di=None):
         di = flash_attention_di(o, do)
     dq = torch.empty_like(q)
     rc = cuda_build.library().pika_flash_attention_bwd_dq(
-        q.device.index, _stream(q), *(x.data_ptr() for x in (q, k, v, do, lse, di, dq)),
+        q.device.index, _stream(q.device), *(x.data_ptr() for x in (q, k, v, do, lse, di, dq)),
         bh, t, d)
     cuda_build.check(rc, f"flash_attention_bwd_dq launch (BH={bh}, T={t}, d={d})")
     flash_attention_bwd_dq.launches += 1

@@ -22,20 +22,22 @@ K2 and K3 replace ``joint_channels_pallas_bwd`` (the Pallas TPU kernels
 ``_bwd_in_kernel`` and ``_bwd_w_kernel``).  Each recomputes z = h W2 + b2
 and dz = d_lse softmax(z) + [v=0] d_zb + [v=label] d_zy, then K2 takes
 dh = dz W2^T to d_ax, d_gx, d_ay, d_gy and K3 takes dW2 = h^T dz and
-db2 = sum dz.  Bound on the H100: two products of 2*B*T*U1*H*V flops each
-per kernel (about 2 TFLOP per kernel at B=8, 8 TFLOP at B=32), float32 SIMT.
-The TPU kernels carry dh across V tiles (K2) and dW2 across all lattice tiles
-(K3) in VMEM because their grids run in order; CUDA blocks do not, so:
-K2's block owns a (t-tile x u-tile) of lattice cells and walks V itself, and
+db2 = sum dz.  Each does two products of 2*B*T*U1*H*V flops (about 2 TFLOP
+per kernel at B=8, 8 TFLOP at B=32).
+K2 (``csrc/joint_channels_bwd.cu``) runs them in float32 on the SIMT units:
+its block owns a (t-tile x u-tile) of lattice cells and walks V itself, and
 writes per-tile partials of the sums over u (d_ax, d_gx) and over t (d_ay,
-d_gy) that torch adds up; K3's block owns a 32-column V tile and one of S
-parts of the lattice rows, keeps that dW2 column tile for all H in
-registers, and writes an (S, H, V) partial that torch adds up.  K3 reads
-h from a float32 h cache (B, T, U+1, H) that the wrapper builds with torch,
-as the JAX wrapper does, because each row is read once per V tile and
-recomputing tanh and sigmoid there would cost more than the read; K2 builds
-its h rows from the factors, once per block (``csrc/joint_channels_bwd.cu``
-has the details).
+d_gy) that torch adds up, where the TPU kernel carries dh across V tiles
+in VMEM.
+K3 (``csrc/joint_channels_bwd_w.cu``) computes what the TPU kernel computes
+at its default ``mm_dtype=bf16``: bf16 h and W2 into z with float32 sums,
+dW2 from bf16 dz, db2 from float32 dz, on the bf16 tensor cores (Hopper TMA
++ wgmma; bound 8.1 ms at B=32).  The TPU kernel keeps a whole dW2 column
+tile resident across the lattice; a Hopper SM cannot hold one, so K3
+materializes bf16 dz in chunks of ``k3_chunk_rows`` lattice rows (about
+512 MB of scratch) and runs per chunk an h kernel, a dz kernel (z = h W2
+with dz as its epilogue, plus per-block db2 partials) and a dW2 kernel
+(dW2 += h^T dz), in stream order: deterministic, no atomics.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
@@ -48,6 +50,25 @@ import ctypes
 import torch
 
 from pika_tpu_torch.ops import cuda_build
+from pika_tpu_torch.ops.flash_attention import _bf16_f32
+
+# K3's scratch: the bf16 dz of one chunk of lattice rows stays within this
+DZ_SCRATCH_BYTES = 512 * 2**20
+K3_TILE = 128  # K3's output tile; a chunk is a whole number of its rows
+
+
+def pad64(n: int) -> int:
+    """``n`` rounded up to a multiple of 64: the widths of K3's bf16 copies,
+    so that every row is whole TMA boxes of 64 columns (and its stride a
+    multiple of 16 bytes, as TMA needs)."""
+    return -(-n // 64) * 64
+
+
+def k3_chunk_rows(v: int) -> int:
+    """Lattice rows per K3 chunk at vocabulary ``v``: the most whole K3 tiles
+    whose bf16 dz (rows, pad64(v)) fits DZ_SCRATCH_BYTES (42,752 at V=6268:
+    8 chunks at B=32, T=239, U1=41)."""
+    return max(K3_TILE, DZ_SCRATCH_BYTES // (2 * pad64(v)) // K3_TILE * K3_TILE)
 
 
 def chunk_channels(ax_c, gx_c, ay, gy, w2, b2, labels_ext):
@@ -124,11 +145,18 @@ joint_channels.launches = 0
 
 
 def joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy,
-                                 chunk: int = 32):
+                                 chunk: int = 32, mm_dtype=torch.float32):
     """The plain version of K2 and K3: recompute-and-vjp of ``chunk_channels``
     over T chunks of ``chunk`` frames (``pika_tpu/ops/rnnt_loss.py:_fused_bwd``,
-    its XLA branch).  ``lse`` is not needed: autograd recomputes it."""
-    del lse
+    its XLA branch).  ``lse`` is not needed there: autograd recomputes it.
+    ``mm_dtype=torch.bfloat16`` takes d_w2 and d_b2 from
+    ``joint_channels_bwd_w_reference`` at bf16, as the card computes them
+    (K2 stays float32)."""
+    if mm_dtype != torch.float32:
+        return (joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse,
+                                             d_zb, d_zy, chunk)[:4]
+                + joint_channels_bwd_w_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse,
+                                                 d_zb, d_zy, chunk, mm_dtype))
     with torch.enable_grad():
         ay_, gy_, w2_, b2_ = (x.detach().requires_grad_() for x in (ay, gy, w2, b2))
         d_axs, d_gxs = [ax[:, :0]], [gx[:, :0]]
@@ -146,14 +174,34 @@ def joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse,
     return torch.cat(d_axs, dim=1), torch.cat(d_gxs, dim=1), d_ay, d_gy, d_w2, d_b2
 
 
-def _w_parts(n_sm: int, v_tiles: int) -> int:
-    """How many row parts K3 splits the lattice into: the S in 1..8 whose
-    v_tiles * S blocks fill their last wave of n_sm best (the smaller S on
-    a tie, since each part adds an (H, V) partial)."""
-    def fill(s):
-        blocks = v_tiles * s
-        return blocks / (-(-blocks // n_sm) * n_sm)
-    return max(range(1, 9), key=lambda s: (round(fill(s), 3), -s))
+def joint_channels_bwd_w_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy,
+                                   chunk: int = 32, mm_dtype=torch.float32):
+    """The plain version of K3: ``(d_w2, d_b2)``.  ``mm_dtype=torch.float32``
+    is ``joint_channels_bwd_reference``'s float32 vjp.  ``torch.bfloat16``
+    rounds where ``pika_tpu/ops/rnnt_pallas.py:_bwd_w_kernel`` does at its
+    default mm_dtype -- h and W2 before z = h W2 + b2, dz before dW2 = h^T dz,
+    db2 from the unrounded dz -- and multiplies the rounded values in
+    float32, with the given ``lse``, over T chunks of ``chunk`` frames."""
+    if mm_dtype == torch.float32:
+        return joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse,
+                                            d_zb, d_zy, chunk)[4:]
+    if mm_dtype != torch.bfloat16:
+        raise ValueError(f"mm_dtype must be torch.float32 or torch.bfloat16, got {mm_dtype}")
+    w = _bf16_f32(w2)
+    cols = torch.arange(w2.shape[1], device=w2.device)
+    labels = labels_ext.long()[:, None, :, None]
+    d_w2, d_b2 = torch.zeros_like(w2), torch.zeros_like(b2)
+    for t0 in range(0, ax.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        h = _bf16_f32(torch.tanh(ax[:, sl, None, :] + ay[:, None, :, :])
+                      * torch.sigmoid(gx[:, sl, None, :] + gy[:, None, :, :]))
+        z = h @ w + b2
+        dz = d_lse[:, sl, :, None] * torch.exp(torch.clamp(z - lse[:, sl, :, None], max=40.0))
+        dz = dz + torch.where(cols == 0, d_zb[:, sl, :, None], 0.0)
+        dz = dz + torch.where(cols == labels, d_zy[:, sl, :, None], 0.0)
+        d_w2 += h.reshape(-1, h.shape[-1]).t() @ _bf16_f32(dz).reshape(-1, dz.shape[-1])
+        d_b2 += dz.sum(dim=(0, 1, 2))
+    return d_w2, d_b2
 
 
 def joint_channels_bwd_in(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy):
@@ -188,32 +236,49 @@ def joint_channels_bwd_in(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, 
 
 
 def joint_channels_bwd_w(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy):
-    """K3: ``(d_w2, d_b2)``, inputs as ``joint_channels_bwd``.  Builds the
-    float32 h cache (B, T, U+1, H) with torch; the (S, H, V) partials are
-    summed with torch."""
+    """K3: ``(d_w2, d_b2)``, inputs as ``joint_channels_bwd``.  On the card
+    the bf16 function of ``joint_channels_bwd_w_reference(mm_dtype=
+    torch.bfloat16)``, as the JAX package's pallas backend runs it; on CPU
+    tensors the float32 plain version, as its XLA backend does off the TPU."""
     args = (ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy)
     if ax.device.type == "cpu":
         return joint_channels_bwd_reference(*args)[4:]
+    return _bwd_w_cuda(*args, chunk_rows=k3_chunk_rows(w2.shape[1]))
+
+
+def _bwd_w_cuda(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy, chunk_rows: int):
+    """K3's launcher: the kernels over chunks of ``chunk_rows`` lattice rows
+    (a positive multiple of K3_TILE).  Builds the padded bf16 W2^T, the
+    padded b2 and the scratch; the per-tile db2 partials are summed with
+    torch."""
+    args = (ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy)
     b, t, u1, h, v = _check_cuda_inputs("joint_channels_bwd_w", *args[:7], lse=lse,
                                         d_lse=d_lse, d_zb=d_zb, d_zy=d_zy)
-    if b * t * u1 == 0:
+    if chunk_rows <= 0 or chunk_rows % K3_TILE:
+        raise ValueError(f"joint_channels_bwd_w: chunk_rows must be a positive multiple of "
+                         f"{K3_TILE}, got {chunk_rows}")
+    rows = b * t * u1
+    if rows == 0:
         return torch.zeros_like(w2), torch.zeros_like(b2)
     dev = ax.device
-    h_cache = ax[:, :, None, :] + ay[:, None, :, :]
-    h_cache.tanh_()
-    h_cache.mul_(torch.sigmoid(gx[:, :, None, :] + gy[:, None, :, :]))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    parts = _w_parts(n_sm, -(-v // W_TILE_V))
-    dw2_p = torch.empty((parts, h, v), dtype=torch.float32, device=dev)
-    db2_p = torch.empty((parts, v), dtype=torch.float32, device=dev)
+    hp, vp = pad64(h), pad64(v)
+    w2_t = torch.zeros((vp, hp), dtype=torch.bfloat16, device=dev)
+    w2_t[:v, :h] = w2.t()
+    b2_p = torch.zeros(vp, dtype=torch.float32, device=dev)
+    b2_p[:v] = b2
+    chunk = min(chunk_rows, rows)
+    h_buf = torch.empty((chunk, hp), dtype=torch.bfloat16, device=dev)
+    dz_buf = torch.empty((chunk, vp), dtype=torch.bfloat16, device=dev)
+    dw2 = torch.empty((hp, vp), dtype=torch.float32, device=dev)
+    db2_p = torch.empty((-(-rows // K3_TILE), vp), dtype=torch.float32, device=dev)
     rc = cuda_build.library().pika_joint_channels_bwd_w(
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        *(x.data_ptr() for x in (h_cache, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy,
-                                 dw2_p, db2_p)),
-        b, t, u1, h, v, parts)
+        *(x.data_ptr() for x in (ax, gx, ay, gy, w2_t, b2_p, labels_ext, lse, d_lse, d_zb, d_zy,
+                                 h_buf, dz_buf, dw2, db2_p)),
+        b, t, u1, h, v, chunk_rows)
     cuda_build.check(rc, f"joint_channels_bwd_w launch (B={b}, T={t}, U1={u1}, H={h}, V={v})")
     joint_channels_bwd_w.launches += 1
-    return dw2_p.sum(0), db2_p.sum(0)
+    return dw2[:h, :v].contiguous(), db2_p.sum(0)[:v].contiguous()
 
 
 def joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy):
@@ -230,7 +295,5 @@ def joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_z
     return joint_channels_bwd_in(*args) + joint_channels_bwd_w(*args)
 
 
-# K3's V tile: the dW2 columns one block keeps for all H (csrc/joint_channels_bwd.cu)
-W_TILE_V = 32
 joint_channels_bwd_in.launches = 0  # K2
 joint_channels_bwd_w.launches = 0   # K3

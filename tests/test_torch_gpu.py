@@ -22,11 +22,13 @@ from pika_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from pika_tpu_torch.ops.rnnt_kernels import (
+    _bwd_w_cuda,
     joint_channels,
     joint_channels_bwd,
     joint_channels_bwd_in,
     joint_channels_bwd_reference,
     joint_channels_bwd_w,
+    joint_channels_bwd_w_reference,
     joint_channels_reference,
 )
 from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused
@@ -103,14 +105,38 @@ def _bwd_case(device, b, t, u1, h, v, seed=0):
     return args + (lse,) + cots
 
 
-def _assert_grads_close(got, ref, rtol):
+GRAD_NAMES = ("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2")
+# K3 against its bf16 plain version: both round h, W2 and dz to bf16 at the
+# same points; they differ by float32 sums in another order, exp2 against
+# exp, and the rare bf16 flip of an h or dz that this moves across a
+# rounding boundary (2^-8 of one term of a sum over the lattice)
+K3_REL_L2, K3_MAX_REL = 1e-4, 1e-3
+# BASELINE.md's envelope of the TPU kernels' bf16 rounding against float32
+# gradients at flagship scale: K3 against the float32 plain version
+K3_ENVELOPE = 6.4e-3
+
+
+def _assert_grads_close(got, ref, rtol, names=GRAD_NAMES):
     """Each gradient within ``rtol`` of its largest reference entry, elementwise
     (float32 sums over up to B*T*U1 cells in another order)."""
-    for name, g, r in zip(("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2"), got, ref):
+    for name, g, r in zip(names, got, ref):
         assert g.shape == r.shape and g.dtype == torch.float32, name
         scale = max(r.abs().max().item(), 1e-6)
         err = (g - r).abs().max().item()
         assert err <= rtol * scale, f"{name}: max abs err {err} vs {rtol} x {scale}"
+
+
+def _rel_l2(got, ref):
+    return ((got - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+
+
+def _assert_k3_close(got, ref):
+    """d_w2, d_b2 of K3 against the bf16 plain version."""
+    for name, g, r in zip(("d_w2", "d_b2"), got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        rel, err = _rel_l2(g, r), (g - r).abs().max().item()
+        assert rel <= K3_REL_L2 and err <= K3_MAX_REL * r.abs().max().item(), (name, rel, err)
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 11, 96, 301), (1, 1, 1, 4, 1), (2, 1, 5, 64, 100),
@@ -118,19 +144,21 @@ def _assert_grads_close(got, ref, rtol):
                                    (2, 8, 3, 1030, 513), (2, 8, 3, 1500, 513),
                                    (1, 6, 3, 2000, 300), (1, 5, 2, 3100, 129)])
 def test_k2_k3_match_reference(cuda_device, shape):
-    """K2 and K3 against the plain chunked vjp: every gradient within 1e-4 of
-    its largest entry.  One launch of each per call.  The H values reach each
-    row tile K2 picks (24, 16 and 8 cells per block), K3's 48-, 32- and
-    16-row chunks and its second pass over H (H > 1024); T = 1, U1 = 1,
-    V = 1 and V not a multiple of either V tile are the degenerate shapes."""
+    """K2 against the plain chunked vjp (float32: every gradient within 1e-4
+    of its largest entry), K3 against its bf16 plain version (K3_REL_L2,
+    K3_MAX_REL).  One launch of each per call.  The H values reach each row
+    tile K2 picks (24, 16 and 8 cells per block) and H not a multiple of
+    K3's 64-deep stages or 128-row tiles; T = 1, U1 = 1, V = 1 and V not a
+    multiple of 8 or of either V tile are the degenerate shapes."""
     args = _bwd_case(cuda_device, *shape)
-    ref = joint_channels_bwd_reference(*args)
+    ref = joint_channels_bwd_reference(*args, mm_dtype=torch.bfloat16)
     before = (joint_channels_bwd_in.launches, joint_channels_bwd_w.launches)
     got = joint_channels_bwd(*args)
     torch.cuda.synchronize()
     assert (joint_channels_bwd_in.launches, joint_channels_bwd_w.launches) == (
         before[0] + 1, before[1] + 1)
-    _assert_grads_close(got, ref, 1e-4)
+    _assert_grads_close(got[:4], ref[:4], 1e-4)
+    _assert_k3_close(got[4:], ref[4:])
 
 
 def test_k2_k3_blank_is_label(cuda_device):
@@ -138,7 +166,10 @@ def test_k2_k3_blank_is_label(cuda_device):
     column 0."""
     args = list(_bwd_case(cuda_device, 2, 7, 4, 32, 50))
     args[6] = torch.zeros_like(args[6])
-    _assert_grads_close(joint_channels_bwd(*args), joint_channels_bwd_reference(*args), 1e-4)
+    got = joint_channels_bwd(*args)
+    ref = joint_channels_bwd_reference(*args, mm_dtype=torch.bfloat16)
+    _assert_grads_close(got[:4], ref[:4], 1e-4)
+    _assert_k3_close(got[4:], ref[4:])
 
 
 def test_k2_k3_reject_bad_inputs(cuda_device):
@@ -155,9 +186,10 @@ def test_k2_k3_reject_bad_inputs(cuda_device):
 
 
 def test_loss_gradients_through_kernels_match_plain(cuda_device):
-    """Autograd through K1, K2 and K3 against the plain backend, with empty
-    and short utterances: losses to 1e-5, gradients within 1e-4 of their
-    largest entry; the empty utterance's gradients are exactly 0."""
+    """Autograd through K1, K2 and K3 against the plain (float32) backend,
+    with empty and short utterances: losses to 1e-5, the input gradients
+    within 1e-4 of their largest entry, d_w2 and d_b2 (bf16 in K3) within
+    K3_ENVELOPE relative L2; the empty utterance's gradients are exactly 0."""
     ax, gx, ay, gy, w2, b2, labels_ext = _case(cuda_device, 3, 20, 8, 32, 70, seed=2)
     labels = labels_ext[:, :-1].clamp(min=1)
     t_len = torch.tensor([20, 11, 0], device=cuda_device)
@@ -169,9 +201,59 @@ def test_loss_gradients_through_kernels_match_plain(cuda_device):
         loss.sum().backward()
         out[backend] = (loss.detach(), [x.grad for x in leaves])
     torch.testing.assert_close(out["auto"][0], out["plain"][0], rtol=1e-5, atol=1e-4)
-    _assert_grads_close(out["auto"][1], out["plain"][1], 1e-4)
+    _assert_grads_close(out["auto"][1][:4], out["plain"][1][:4], 1e-4)
+    for name, g, r in zip(("d_w2", "d_b2"), out["auto"][1][4:], out["plain"][1][4:]):
+        assert _rel_l2(g, r) <= K3_ENVELOPE, (name, _rel_l2(g, r))
     for g in out["auto"][1][:4]:
         assert torch.count_nonzero(g[2]) == 0
+
+
+@pytest.mark.parametrize("shape,chunk_rows", [((2, 37, 11, 96, 301), 256),
+                                              ((2, 20, 9, 128, 6268), 128),
+                                              ((1, 8, 5, 256, 6268), 128),
+                                              ((3, 13, 7, 200, 513), 128)])
+def test_k3_chunks_match_bf16_reference(cuda_device, shape, chunk_rows):
+    """K3 over several chunks of lattice rows (the chunk size lowered through
+    the launcher), the last one partial (814 = 3 x 256 + 46, 360 = 2 x 128
+    + 104, 273 = 2 x 128 + 17 rows; 40 rows in one chunk), at V = 301, 513
+    and 6268, against its bf16 plain version."""
+    args = _bwd_case(cuda_device, *shape)
+    ref = joint_channels_bwd_w_reference(*args, mm_dtype=torch.bfloat16)
+    before = joint_channels_bwd_w.launches
+    got = _bwd_w_cuda(*args, chunk_rows=chunk_rows)
+    torch.cuda.synchronize()
+    assert joint_channels_bwd_w.launches == before + 1
+    _assert_k3_close(got, ref)
+
+
+def test_k3_within_the_f32_envelope(cuda_device):
+    """K3 (bf16, as the TPU kernel rounds) against the float32 plain version,
+    with W2 scaled as the model initializes it: each gradient within
+    K3_ENVELOPE relative L2, and d_w2 measurably away from float32."""
+    args = list(_bwd_case(cuda_device, 2, 31, 9, 512, 1000, seed=3))
+    args[4] = args[4] * (2.0 / 512 ** 0.5 / 0.2)
+    args[7] = joint_channels_reference(*args[:7])[0]
+    got = joint_channels_bwd_w(*args)
+    ref = joint_channels_bwd_w_reference(*args)
+    for name, g, r in zip(("d_w2", "d_b2"), got, ref):
+        assert _rel_l2(g, r) <= K3_ENVELOPE, (name, _rel_l2(g, r))
+    assert _rel_l2(got[0], ref[0]) > 1e-5
+
+
+def test_k3_rerun_is_bit_identical(cuda_device):
+    """No atomics, chunks in stream order: a second run gives the same bits."""
+    args = _bwd_case(cuda_device, 2, 37, 11, 96, 301, seed=4)
+    first = _bwd_w_cuda(*args, chunk_rows=256)
+    second = _bwd_w_cuda(*args, chunk_rows=256)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k3_rejects_bad_chunk_rows(cuda_device):
+    args = _bwd_case(cuda_device, 1, 5, 3, 16, 10)
+    for rows in (0, 100, -128):
+        with pytest.raises(ValueError, match="chunk_rows"):
+            _bwd_w_cuda(*args, chunk_rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +315,16 @@ def test_k4_matches_reference(cuda_device, shape):
     for name, got, ref in (("o", o, ref_o), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
                            ("dv", dv, ref_dv)):
         _assert_k4_close(got, ref, name)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k4_forward_rerun_is_bit_identical(cuda_device, d):
+    """The forward twice on the same inputs: the same o and lse bits (every
+    block owns its queries; no atomics)."""
+    q, k, v, _ = _k4_case(cuda_device, 2, 3, 300, d, seed=3)
+    o1, lse1 = flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_k4_autograd_is_deterministic(cuda_device):
