@@ -306,15 +306,16 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A map over a bf16 tensor of `rank` dimensions (dims[0] innermost, byte
-// strides of the outer ones) with 64 x 64 (x 1 ...) boxes and the 128-byte
-// swizzle; boxes past the edge read zeros.  Every stride must be a multiple
-// of 16 bytes and the base 16-byte aligned.
+// strides of the outer ones) with the 128-byte swizzle; boxes past the edge
+// read zeros.  The box is 64 x 64 (x 1 ...) unless `box` gives one (its
+// inner extent 64: one 128-byte row).  Every stride must be a multiple of
+// 16 bytes and the base 16-byte aligned.
 inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides) {
-  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
+                     const cuuint64_t* strides, const cuuint32_t* box = nullptr) {
+  const cuuint32_t box64[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
   const EncodeTiled encode = encode_tiled();
   return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          dims, strides, box ? box : box64, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

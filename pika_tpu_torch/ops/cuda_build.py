@@ -94,14 +94,10 @@ def library() -> ctypes.CDLL:
     """The built library with every entry point's signature declared."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pika_joint_channels_fwd.argtypes = [i, p] + [p] * 10 + [i] * 5
+    lib.pika_joint_channels_fwd.argtypes = [i, p] + [p] * 12 + [i] * 6
     lib.pika_joint_channels_fwd.restype = i
-    lib.pika_joint_channels_bwd_in_tile.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
-    lib.pika_joint_channels_bwd_in_tile.restype = i
-    lib.pika_joint_channels_bwd_in.argtypes = [i, p] + [p] * 16 + [i] * 7
-    lib.pika_joint_channels_bwd_in.restype = i
-    lib.pika_joint_channels_bwd_w.argtypes = [i, p] + [p] * 15 + [i] * 6
-    lib.pika_joint_channels_bwd_w.restype = i
+    lib.pika_joint_channels_bwd.argtypes = [i, p] + [p] * 20 + [i] * 7
+    lib.pika_joint_channels_bwd.restype = i
     lib.pika_flash_attention_fwd.argtypes = [i, p] + [p] * 5 + [i] * 3
     lib.pika_flash_attention_fwd.restype = i
     lib.pika_flash_attention_bwd_dkv.argtypes = [i, p] + [p] * 8 + [i] * 3

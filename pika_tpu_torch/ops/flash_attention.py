@@ -4,6 +4,9 @@ plain PyTorch version.
 ``flash_attention(q, k, v)`` computes ``softmax(q k^T) v`` per (batch, head)
 for bf16 q, k, v of shape (B, heads, T, d) -- q already scaled by 1/sqrt(d),
 no mask, keys and queries of one length -- and returns bf16, with autograd.
+The kernels are built for d = 64 and 128; any other d up to 128 runs
+zero-padded to the next of them (``pad_head``, exact), as the library
+kernel takes any d below 128.
 It replaces the library Pallas TPU kernels that
 ``pika_tpu/models/transformer.py:MultiHeadedAttention._flash`` reaches
 (``jax/experimental/pallas/ops/tpu/flash_attention.py``, jax 0.9.0): the
@@ -44,6 +47,7 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from pika_tpu_torch.ops import cuda_build
 
@@ -87,7 +91,9 @@ def _check_cuda(what, **tensors):
     if device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {device}")
     if len(shape) != 4 or shape[3] not in HEAD_DIMS or shape[2] == 0:
-        raise ValueError(f"{what}: q must be (B, heads, T > 0, d) with d in {HEAD_DIMS}, "
+        raise ValueError(f"{what}: q must be (B, heads, T > 0, d) with d in {HEAD_DIMS} "
+                         f"(flash_attention zero-pads any d up to {HEAD_DIMS[-1]}; no "
+                         f"configuration of the repo has d_head > {HEAD_DIMS[-1]}), "
                          f"got {tuple(shape)}")
     for name, x in tensors.items():
         if x.dtype != torch.bfloat16 or x.shape != shape or x.device != device:
@@ -201,8 +207,24 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(*ctx.saved_tensors, do.contiguous())
 
 
+def pad_head(attention, q, k, v):
+    """``attention`` of q, k, v zero-padded along d to the next width of
+    ``HEAD_DIMS``, its output sliced back to d.  Exact: q is scaled by the
+    true d already, zero columns of q and k add nothing to the scores, zero
+    columns of v give zero columns of the output, and autograd's backward of
+    the pad drops the padded columns of the gradients."""
+    d = q.shape[-1]
+    width = next(w for w in HEAD_DIMS if w >= d)
+    o = attention(*(F.pad(x, (0, width - d)) for x in (q, k, v)))
+    return o[..., :d]
+
+
 def flash_attention(q, k, v):
     """bf16 ``softmax(q k^T) v`` over (B, heads, T, d) q, k, v (q scaled by
     1/sqrt(d) already), differentiable.  CUDA inputs must be contiguous with
-    d in ``HEAD_DIMS``."""
+    d <= ``HEAD_DIMS[-1]``; a d between the kernels' widths runs zero-padded
+    (``pad_head``).  CPU inputs take the plain versions at any d."""
+    d = q.shape[-1]
+    if q.device.type == "cuda" and d not in HEAD_DIMS and 0 < d < HEAD_DIMS[-1]:
+        return pad_head(FlashAttention.apply, q, k, v)
     return FlashAttention.apply(q, k, v)

@@ -3,7 +3,7 @@
     python -m pika_tpu_torch.ops.flash_attention_ab A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` with one change; a
-``hopper.cuh`` beside it is used, else the package's is copied there.  Each
+header (``*.cuh``) beside it is used, else the package's is copied there.  Each
 is built with nvcc, all at once, into a library beside it (same plain C
 interface as the package's).  Then the forward, dk/dv and dq kernels of
 each build are timed with CUDA events on the flagship encoder's three
@@ -48,8 +48,9 @@ def build(sources: list[Path], declare=declare) -> dict[Path, ctypes.CDLL]:
     libraries, their entry points declared by ``declare``."""
     procs = {}
     for src in dict.fromkeys(sources):
-        if not (src.parent / "hopper.cuh").exists():
-            shutil.copy(cuda_build.CSRC_DIR / "hopper.cuh", src.parent)
+        for header in cuda_build.CSRC_DIR.glob("*.cuh"):
+            if not (src.parent / header.name).exists():
+                shutil.copy(header, src.parent)
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o",
                str(src.with_suffix(".so")), str(src)]
         procs[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -143,6 +143,14 @@ def rnnt_occupancy(blank_lp, emit_lp, t_len, u_len, alpha=None):
     return g_blank, g_emit
 
 
+def plain_mm_dtype(device: torch.device) -> torch.dtype:
+    """The matmul dtype of the plain loss backend on ``device``: bf16 on the
+    card, as the kernels (and the JAX package's pallas backend on its chip)
+    compute; float32 on the CPU, as the JAX package's XLA backend does off
+    the TPU."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
 def _labels_ext(labels, vocab):
     """labels with a trailing 0 column, clipped to [0, V), int32."""
     return F.pad(labels, (0, 1)).clamp(0, vocab - 1).to(torch.int32).contiguous()
@@ -162,7 +170,8 @@ class RNNTLossFused(torch.autograd.Function):
         if backend == "auto":
             lse, zb, zy = joint_channels(ax, gx, ay, gy, w2, b2, labels_ext)
         else:
-            lse, zb, zy = joint_channels_reference(ax, gx, ay, gy, w2, b2, labels_ext, chunk)
+            lse, zb, zy = joint_channels_reference(ax, gx, ay, gy, w2, b2, labels_ext, chunk,
+                                                   plain_mm_dtype(ax.device))
         blank_lp = zb - lse
         alpha = rnnt_alpha(blank_lp, zy - lse, u_len)
         bi = torch.arange(b, device=alpha.device)
@@ -186,7 +195,8 @@ class RNNTLossFused(torch.autograd.Function):
             grads = joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy)
         else:
             grads = joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse,
-                                                 d_lse, d_zb, d_zy, ctx.chunk)
+                                                 d_lse, d_zb, d_zy, ctx.chunk,
+                                                 plain_mm_dtype(ax.device))
         return (*grads, None, None, None, None, None)
 
 
@@ -198,7 +208,9 @@ def rnnt_loss_fused(ax, gx, ay, gy, w2, b2, labels, t_len, u_len, chunk: int = 3
     labels: (B, U); t_len, u_len: (B,).  ``backend``: "auto" takes the
     kernels K1 (forward) and K2/K3 (backward) -- launched on CUDA tensors,
     their plain versions on CPU tensors; "plain" always takes the plain
-    versions over T chunks of ``chunk`` frames.  Utterances with
+    versions over T chunks of ``chunk`` frames, computing the kernels'
+    function on each device (``plain_mm_dtype``: bf16 matmuls on the card,
+    float32 on the CPU).  Utterances with
     ``t_len <= 0`` get a loss of exactly 0 and zero gradients.
     """
     return RNNTLossFused.apply(ax, gx, ay, gy, w2, b2, labels, t_len, u_len, chunk, backend)
