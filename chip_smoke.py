@@ -15,6 +15,15 @@ V=6268, random weights from a seed):
 
 * the inference path: the eval step (RNN-T loss through K1) and greedy
   decoding of 8 utterances of 10 s;
+* beam search on the same 8 utterances (beam 8, n_best 8, 200 symbols):
+  the search replayed as a CUDA graph against its eager loop (identical
+  N-bests), beam 1 against greedy, the N-best's invariants, bf16 ("auto")
+  against float32, wall times of greedy and beam 8 graphed and eager and of
+  beam 8 at bf16; the flash beam decode (3 K4 forward launches per encoder
+  pass); and, after every other phase, a profiled graphed search;
+* the decode CLI (``train/eval_transducer.py``) in-process on 8 synthetic
+  10 s wavs and a port bundle of the model: 8 x 8 N-best lines and a WER
+  line (a random model's WER is printed, not judged);
 * the training path: ``bench.py``'s step on 32 utterances of 10 s with 40
   labels -- dither 1.0, SpecAugment, dropout 0.2, the loss through K1
   forward and K2/K3 backward (bf16 products, z once per backward), inf-norm clipping
@@ -51,18 +60,29 @@ before that line.  There is no CPU mode: without a CUDA card it exits 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from pika_tpu_torch.decode.greedy import greedy_decode_waveforms
+from pika_tpu_torch.data.wavio import write_wav
+from pika_tpu_torch.decode.beam import (
+    BeamConfig,
+    beam_search,
+    beam_search_eager,
+    beam_search_waveforms,
+)
+from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager, greedy_decode_waveforms
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.ops import cuda_build
@@ -91,6 +111,8 @@ from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_loss_numpy,
     rnnt_occupancy,
 )
+from pika_tpu_torch.train.bundle import save_bundle
+from pika_tpu_torch.train.eval_transducer import main as eval_main
 from pika_tpu_torch.train.lr import make_optimizer
 from pika_tpu_torch.train.step import (
     FeaturizerConfig,
@@ -105,6 +127,7 @@ SECONDS = 10
 SR = 16000
 U_MAX = 40
 MAX_SYMBOLS = 200
+BEAM = NBEST = 8
 # K1 against its bf16 plain version (both round h and W2 to bf16 at the TPU
 # kernel's points, sums in float32 in another order, exp2 against exp; the
 # rare bf16 flip of an h by tanhf/expf against torch moves a logit by 2^-8
@@ -562,33 +585,33 @@ def train_path(device) -> tuple[dict, float]:
         f"({alpha_s / step_s:.2%} of the step), backward beta loop + occupancy "
         f"{occ_s * 1e3:.2f} ms ({occ_s / step_s:.2%} of the step)")
 
-    profile_step(step, batch, gen, device)
+    profile(lambda: step(batch, gen)["loss"].item(), "train step")
     del model, step, before
     torch.cuda.empty_cache()
     return launches, step_s
 
 
-def profile_step(step, batch, gen, device, also: str = "") -> None:
-    """torch.profiler over one warm train step: device-busy share of the
-    wall time, the kernels with the most device time, and the device time of
-    those whose name holds ``also``."""
+def profile(fn, what: str, also: str = "") -> None:
+    """torch.profiler over one warm call of ``fn`` (which ends in a host
+    sync): device-busy share of the wall time, the kernels with the most
+    device time, and the device time of those whose name holds ``also``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, gen)["loss"].item()
+        fn()
         wall = time.perf_counter() - t0
     # the device's own entries (kernels, copies, memsets): each once
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
-        say("profiled train step: the profiler saw no device time")
+        say(f"profiled {what}: the profiler saw no device time")
         return
     n_kernels = sum(e.count for e in events)
-    say(f"profiled train step: wall {wall:.4f} s (profiler on), device busy "
+    say(f"profiled {what}: wall {wall:.4f} s (profiler on), device busy "
         f"{busy_us / 1e6:.4f} s ({busy_us / 1e6 / wall:.1%}), {n_kernels} device ops")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for e in ranked[:10] + [e for e in ranked[10:] if also and also in e.key]:
@@ -927,7 +950,7 @@ def flash_train_path(device) -> dict:
     check(all(math.isfinite(x) for x in losses), f"flash train losses finite: {losses}")
     check(all(n > 0 for n in launches.values()), f"the flash train steps launched K1-K4: {launches}")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "parameters finite")
-    profile_step(step, batch, gen, device, also="flash_")
+    profile(lambda: step(batch, gen)["loss"].item(), "train step", also="flash_")
     del model, step
     torch.cuda.empty_cache()
     return launches
@@ -942,6 +965,186 @@ def flash_step_parity(device) -> None:
     ref = one_step(device, batch, "with exact attention", tdnn_transformer_dropout=0.0)
     compare_steps("flash vs exact attention", got, ref, FLASH_LOSS_RTOL, FLASH_ENCODER_TOL,
                   FLASH_STATS_TOL)
+
+
+def check_nbest(out, t_out: int, what: str) -> None:
+    """An N-best of the flagship decode: sorted best-first, tokens in [1, V)
+    padded with -1, alignments padded with -1, and the non-blanks of each
+    alignment as many as its hypothesis' tokens."""
+    tokens, lens, scores = out["tokens"], out["lens"].long(), out["scores"]
+    aligns, align_lens = out["aligns"], out["align_lens"].long()
+    check(tuple(tokens.shape) == (BATCH, NBEST, MAX_SYMBOLS)
+          and tuple(aligns.shape) == (BATCH, NBEST, t_out + MAX_SYMBOLS),
+          f"{what}: shapes {tuple(tokens.shape)}, {tuple(aligns.shape)}")
+    check(bool(torch.isfinite(scores).all() and (scores[:, :-1] >= scores[:, 1:]).all()),
+          f"{what}: scores finite and sorted")
+    inside = torch.arange(MAX_SYMBOLS, device=tokens.device) < lens[..., None]
+    check(bool(((tokens >= 1) & (tokens < VOCAB))[inside].all()), f"{what}: tokens in [1, V)")
+    check(bool((tokens[~inside] == -1).all()), f"{what}: token padding is -1")
+    a_inside = torch.arange(aligns.shape[-1], device=tokens.device) < align_lens[..., None]
+    check(bool((aligns[~a_inside] == -1).all()), f"{what}: alignment padding is -1")
+    check(bool((((aligns != 0) & a_inside).sum(-1) == lens).all()),
+          f"{what}: non-blanks of each alignment = its length")
+
+
+def same_nbest(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in ("tokens", "lens", "aligns", "align_lens",
+                                                  "scores", "steps"))
+
+
+def top1_agreement(a, b) -> int:
+    """Rows whose best hypothesis is the same in both N-bests."""
+    same = (a["lens"][:, 0] == b["lens"][:, 0]) & (a["tokens"][:, 0] == b["tokens"][:, 0]).all(-1)
+    return int(same.sum())
+
+
+def beam_path(device) -> None:
+    """Beam search at the flagship width on the inference batch (beam 8,
+    n_best 8, max 200 symbols): the graphed search against the eager loop
+    (identical N-bests), beam 1 against greedy, the N-best's invariants,
+    bf16 ("auto") against float32; wall times of greedy and beam 8, eager
+    and graphed, and beam 8 at bf16; the flag-check interval; peak memory
+    (its profile is ``profile_beam``, the last phase)."""
+    model, featurizer = eval_setup(device)
+    batch = flagship_batch(device, BATCH)
+    with torch.no_grad():
+        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+        enc = model.encode(feats, feat_lens)
+        enc_lens = model.encoder_out_len(feat_lens)
+    t_out = enc.shape[1]
+    cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
+    t0 = time.perf_counter()
+    graphed = beam_search(model, enc, enc_lens, cfg)
+    torch.cuda.synchronize()
+    say(f"beam {BEAM}: first call (capture included) {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats(device)
+    beam_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg))
+    peak = torch.cuda.max_memory_allocated(device)
+    eager = beam_search_eager(model, enc, enc_lens, cfg)
+    eager_s = dp_seconds(lambda: beam_search_eager(model, enc, enc_lens, cfg), repeats=1)
+    steps = int(graphed["steps"])
+    check(same_nbest(beam_search(model, enc, enc_lens, cfg), graphed),
+          "beam: two graphed searches give the same bits")
+    check(same_nbest(graphed, eager), "beam: graphed = eager (tokens, lens, aligns, scores)")
+    check_nbest(graphed, t_out, "beam 8")
+    say(f"beam {BEAM}, n_best {NBEST}, B={BATCH}, T'={t_out}: graphed {beam_s:.4f} s, eager "
+        f"{eager_s:.4f} s ({eager_s / beam_s:.2f}x), {steps} loop steps ({beam_s / steps * 1e3:.3f} "
+        f"ms a step graphed); peak memory {peak / 2**30:.3f} GiB; graphed = eager, N-best "
+        f"invariants: ok; top-1 lens {graphed['lens'][:, 0].tolist()}")
+    for spc in (1, 4, 16, 64):
+        secs = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg, steps_per_check=spc))
+        say(f"  beam {BEAM} graphed, flag read every {spc} steps: {secs:.4f} s")
+
+    greedy = greedy_decode(model, enc, enc_lens, MAX_SYMBOLS)
+    greedy_s = dp_seconds(lambda: greedy_decode(model, enc, enc_lens, MAX_SYMBOLS))
+    greedy_eager_s = dp_seconds(lambda: greedy_decode_eager(model, enc, enc_lens, MAX_SYMBOLS),
+                                repeats=1)
+    ref = greedy_decode_eager(model, enc, enc_lens, MAX_SYMBOLS)
+    check(all(torch.equal(a, b) for a, b in zip(greedy, ref)), "greedy: graphed = eager")
+    beam1 = beam_search(model, enc, enc_lens, BeamConfig(beam_size=1, n_best=1,
+                                                         max_symbols=MAX_SYMBOLS))
+    check(torch.equal(beam1["tokens"][:, 0], greedy[0]) and torch.equal(beam1["lens"][:, 0],
+                                                                          greedy[1]),
+          "beam 1 (float32) gives greedy's tokens")
+    say(f"greedy (from the encoder output): graphed {greedy_s:.4f} s, eager {greedy_eager_s:.4f} s "
+        f"({greedy_eager_s / greedy_s:.2f}x); graphed = eager, beam 1 = greedy: ok")
+
+    bf16_cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS, mm_dtype="auto")
+    bf16 = beam_search(model, enc, enc_lens, bf16_cfg)
+    bf16_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, bf16_cfg))
+    check(bool(torch.isfinite(bf16["scores"]).all()), "beam bf16: scores finite")
+    check_nbest(bf16, t_out, "beam 8 bf16")
+    top = graphed["scores"][:, 0]
+    say(f"beam {BEAM} at bf16 (auto), graphed: {bf16_s:.4f} s, {int(bf16['steps'])} steps; top-1 "
+        f"agreement with float32 {top1_agreement(bf16, graphed)} of {BATCH} rows; top-1 scores "
+        f"max rel diff {((bf16['scores'][:, 0] - top).abs() / top.abs()).max().item():.3e}")
+
+    def decode_waveforms():
+        beam_search_waveforms(model, featurizer, batch["wavs"], batch["wav_lens"], cfg)
+        torch.cuda.synchronize()
+
+    wave_s = dp_seconds(decode_waveforms)
+    say(f"beam {BEAM} from the waveforms (fbank + encoder + graphed search): {wave_s:.4f} s "
+        f"(RTF {wave_s / (BATCH * SECONDS):.5f})")
+    del model, featurizer, enc
+    torch.cuda.empty_cache()
+
+
+def profile_beam(device) -> None:
+    """The profiled graphed beam 8 search, last of all phases: with it in
+    the beam phase, the host-driven work of later phases ran slower than
+    before the decode phases existed (on an H100: the loss DP loops by
+    about 40%, the 4 x 60 s eval step by 20%); with it here the eval and
+    train steps matched the parent's again."""
+    model, featurizer = eval_setup(device)
+    batch = flagship_batch(device, BATCH)
+    with torch.no_grad():
+        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+        enc = model.encode(feats, feat_lens)
+        enc_lens = model.encoder_out_len(feat_lens)
+    cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
+    beam_search(model, enc, enc_lens, cfg)  # capture
+    profile(lambda: beam_search(model, enc, enc_lens, cfg)["steps"].item(),
+            f"graphed beam {BEAM} search")
+    del model, featurizer, enc
+    torch.cuda.empty_cache()
+
+
+def flash_beam_path(device) -> None:
+    """Beam 8 from the waveforms with attn_flash=True: 3 K4 forward launches
+    per encoder pass; its N-best against the exact path's."""
+    cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
+    batch = flagship_batch(device, BATCH)
+    outs = {}
+    for flash in (False, True):
+        model, featurizer = eval_setup(device, attn_flash=flash)
+        reset_launches()
+        outs[flash] = beam_search_waveforms(model, featurizer, batch["wavs"], batch["wav_lens"], cfg)
+        launches = k4_launches()
+        check(launches == {"fwd": 3 if flash else 0, "dkv": 0, "dq": 0},
+              f"beam decode K4 launches {launches}")
+        del model, featurizer
+    check_nbest(outs[True], outs[True]["enc_out"].shape[1], "flash beam 8")
+    say(f"flash beam {BEAM} decode: K4 launches {launches}; top-1 agreement with exact attention "
+        f"{top1_agreement(outs[True], outs[False])} of {BATCH} rows: ok")
+    torch.cuda.empty_cache()
+
+
+def eval_cli_path(device) -> None:
+    """The decode CLI in-process on 8 synthetic 10 s wavs: a port bundle of
+    the seed-0 flagship model, beam 8, n_best 8, --ref_labels; 8 x 8 N-best
+    lines and a WER line (a random model's WER is printed, not judged)."""
+    model, _ = eval_setup(device)
+    rng = np.random.default_rng(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = save_bundle(os.path.join(tmp, "bundle"), model)
+        del model
+        with open(os.path.join(tmp, "wav.scp"), "w") as scp, \
+                open(os.path.join(tmp, "label.txt"), "w") as lab:
+            for i in range(BATCH):
+                path = os.path.join(tmp, f"u{i}.wav")
+                write_wav(path, (rng.standard_normal(SR * SECONDS) * 4000).astype(np.int16), SR)
+                scp.write(f"utt{i} {path}\n")
+                lab.write(f"utt{i} " + " ".join(map(str, rng.integers(1, VOCAB, U_MAX))) + "\n")
+        with open(os.path.join(tmp, "units.txt"), "w") as f:
+            f.write("".join(f"u{k} {k}\n" for k in range(VOCAB)))
+        nbest = os.path.join(tmp, "nbest.txt")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            wer = eval_main([bundle, os.path.join(tmp, "wav.scp"), nbest,
+                             "--beam_size", str(BEAM), "--n_best", str(NBEST),
+                             "--max_symbols", str(MAX_SYMBOLS), "--max_wav_seconds", str(SECONDS),
+                             "--symbols_map", os.path.join(tmp, "units.txt"),
+                             "--ref_labels", f"ark:{os.path.join(tmp, 'label.txt')}",
+                             "--output_scores"])
+        with open(nbest) as f:
+            lines = f.read().splitlines()
+    for line in err.getvalue().splitlines():
+        say(f"eval CLI: {line}")
+    check(len(lines) == BATCH * NBEST, f"eval CLI wrote {len(lines)} N-best lines")
+    check(wer is not None and any(x.startswith("%WER") for x in err.getvalue().splitlines()),
+          "eval CLI printed a WER line")
+    say(f"eval CLI: {len(lines)} N-best lines, WER {wer:.4f} (random weights, not judged): ok")
 
 
 def main() -> int:
@@ -973,12 +1176,19 @@ def main() -> int:
     k4 = k4_parity(device)
     inference_launches, exact_loss = inference_path(device)
     flash_inference_path(device, exact_loss)
+    held = torch.cuda.memory_allocated(device)
+    beam_path(device)
+    flash_beam_path(device)
+    eval_cli_path(device)
+    say(f"device memory still allocated after the decode phases: "
+        f"{(torch.cuda.memory_allocated(device) - held) / 2**20:+.1f} MiB")
     long_utterances(device)
     small_heads_path(device)
     launches, _ = train_path(device)
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)
+    profile_beam(device)
 
     say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}")
     say(card)

@@ -17,6 +17,7 @@ the generator passed to ``encode``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -123,9 +124,21 @@ class Transducer(nn.Module):
         top, h, c = lstm_stack_step(self.decoder, emb, state[0], state[1])
         return top, (h, c)
 
+    def predict_last(self, tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """Prediction-net output after a full prefix: (B, Um) tokens with
+        per-row lengths -> (B, H), the output at position ``lens`` (SOS
+        included)."""
+        dec = self.predict(tokens, lens)
+        return dec.gather(1, lens.long()[:, None, None].expand(-1, 1, dec.shape[-1]))[:, 0]
+
     def joint_factors(self, enc_out: torch.Tensor, dec_out: torch.Tensor):
         """(ax, gx) over T and (ay, gy) over U+1 for the fused loss."""
         return (*self.joint_enc_factors(enc_out), *self.joint_dec_factors(dec_out))
+
+    def joint_step(self, enc_hid: torch.Tensor, dec_hid: torch.Tensor) -> torch.Tensor:
+        """Joint over aligned pairs: enc_hid, dec_hid (..., H) -> logits (..., V)."""
+        return self.joint_from_factors(*self.joint_enc_factors(enc_hid),
+                                       *self.joint_dec_factors(dec_hid))
 
     def joint_enc_factors(self, enc_out: torch.Tensor):
         return self.fc1_x(enc_out), self.gate_x(enc_out)
@@ -137,9 +150,46 @@ class Transducer(nn.Module):
         """Logits from the factors of aligned (t, u) pairs: (..., V)."""
         return self.fc2(torch.tanh(ax + ay) * torch.sigmoid(gx + gy))
 
+    def joint_logits(self, enc_out: torch.Tensor, dec_out: torch.Tensor) -> torch.Tensor:
+        """Full lattice logits (B, T, U+1, V): oracle and test use only (the
+        loss never writes the lattice)."""
+        ax, gx, ay, gy = self.joint_factors(enc_out, dec_out)
+        return self.joint_from_factors(ax[:, :, None], gx[:, :, None], ay[:, None], gy[:, None])
+
     def joint_params(self):
         """(W2 (H, V), b2 (V,)) of the output projection, in the JAX layout."""
         return self.fc2.weight.t().contiguous(), self.fc2.bias
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                y_len: Optional[torch.Tensor] = None, softmax: bool = True) -> torch.Tensor:
+        """Full-lattice forward: log-probs (B, T', U+1, V) (logits without
+        ``softmax``); oracle and test use only."""
+        out = self.joint_logits(self.encode(x, x_len), self.predict(y, y_len))
+        return torch.log_softmax(out, dim=-1) if softmax else out
+
+    def decode_net(self, dtype: torch.dtype) -> "Transducer":
+        """A Transducer without an encoder, holding the prediction net and
+        the joint in ``dtype``: what the decode loops run.  At this model's
+        own dtype it shares this model's modules; in another it holds a
+        copy, which the loops keep across calls and refresh in place with
+        ``load_decode_weights`` before each search, so a captured CUDA
+        graph keeps reading the same tensors."""
+        share = dtype == self.fc2.weight.dtype
+        net = Transducer.__new__(Transducer)
+        nn.Module.__init__(net)
+        net.config = self.config
+        for name, mod in self.named_children():
+            if name != "encoder":
+                setattr(net, name, mod if share else
+                        copy.deepcopy(mod).to(dtype).requires_grad_(False).eval())
+        return net
+
+    def load_decode_weights(self, net: "Transducer") -> None:
+        """Copy this model's prediction net and joint into ``net`` (a
+        ``decode_net``) where it holds copies, casting to their dtype."""
+        for name, mod in net.named_children():
+            if mod is not getattr(self, name):
+                mod.load_state_dict(getattr(self, name).state_dict())
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -1,0 +1,76 @@
+"""Model bundles: the configuration and the weights in one directory (port of
+``pika_tpu/train/bundle.py``).
+
+A bundle holds ``model.json`` -- ``{"kind", "config", "metadata"}``, the
+JAX package's spec -- and ``model.pt``, a torch state dict, in place of the
+JAX package's Orbax checkpoint.  A JAX bundle converts with
+``bundle_from_flax`` from its variables as numpy arrays; reading the Orbax
+checkpoint needs JAX, so that step happens outside this package (README).
+Only the kind ``transducer`` loads; ``las`` waits for the LAS port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+from typing import Tuple
+
+import torch
+
+from pika_tpu_torch.convert import state_dict_from_flax
+from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.models.transducer import Transducer, TransducerConfig
+
+WEIGHTS = "model.pt"
+
+
+def _write(directory: str, spec: dict, state_dict: dict) -> str:
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "model.json"), "w") as f:
+        json.dump(spec, f, indent=2)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(directory, WEIGHTS))
+    return directory
+
+
+def save_bundle(directory: str, model: Transducer, metadata: dict = None) -> str:
+    """Write ``model`` (its configuration and state dict) as a bundle of
+    kind ``transducer``; returns the directory."""
+    spec = {"kind": "transducer", "config": dataclasses.asdict(model.config),
+            "metadata": metadata or {}}
+    return _write(directory, spec, model.state_dict())
+
+
+def bundle_from_flax(directory: str, spec: dict, variables_np: dict) -> str:
+    """Write a port bundle from a JAX bundle's ``model.json`` spec and its
+    flax variables as numpy arrays (``jax.tree.map(np.asarray, variables)``)."""
+    return _write(directory, spec, state_dict_from_flax(variables_np))
+
+
+def load_bundle(directory: str, device=None, **config) -> Tuple[Transducer, dict]:
+    """Returns (model in eval mode on ``device`` -- the card unless the
+    caller names another --, metadata); ``config`` fields replace the
+    bundle's (the CLI's ``--attn_chunk 0``)."""
+    directory = os.path.abspath(directory)
+    with open(os.path.join(directory, "model.json")) as f:
+        spec = json.load(f)
+    if spec["kind"] != "transducer":
+        raise NotImplementedError(f"bundle kind {spec['kind']!r}: only 'transducer' is ported "
+                                  "(LAS is ROADMAP Queue 1 item 6)")
+    # a bundle saved by a newer build may carry fields this one does not
+    # know: drop them, loudly
+    known = {f.name for f in dataclasses.fields(TransducerConfig)}
+    unknown = sorted(set(spec["config"]) - known)
+    if unknown:
+        print(f"load_bundle: ignoring unknown config fields {unknown}", file=sys.stderr)
+    cfg = TransducerConfig(**{k: v for k, v in {**spec["config"], **config}.items() if k in known})
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = Transducer(cfg)
+    model = model.to_empty(device=device)
+    state = torch.load(os.path.join(directory, WEIGHTS), map_location=device, weights_only=True)
+    model.load_state_dict(state)
+    return model.eval(), spec.get("metadata", {})

@@ -1,0 +1,230 @@
+"""Batch decoding CLI (port of ``pika_tpu/train/eval_transducer.py``,
+without FST fusion and LAS rescoring).
+
+Reads a model bundle (``train/bundle.py``), decodes a wav.scp with features
+computed on the device, writes the N-best hypotheses in the reference's
+format, then reranks and, given references, scores the WER:
+
+    python -m pika_tpu_torch.train.eval_transducer BUNDLE wav.scp nbest.txt \\
+        --ref_labels ark:label.txt --beam_size 8 --n_best 8
+
+The decode runs on the card unless ``--device cpu``.  Batches are padded
+to ``--batch_size`` rows of ``--max_wav_seconds``, so one shape (one CUDA
+graph of the search) serves the run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import queue
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from pika_tpu_torch.data import segment as seg
+from pika_tpu_torch.data.scp import read_int_vectors, read_symbol_table, read_wav_scp
+from pika_tpu_torch.data.wavio import read_wav
+from pika_tpu_torch.decode.beam import BeamConfig, beam_search_waveforms
+from pika_tpu_torch.decode.rescore import rerank_nbest
+from pika_tpu_torch.decode.wer import score_wer
+from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.train import common
+from pika_tpu_torch.train.bundle import load_bundle
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description="transducer batch decoding")
+    parser.add_argument("model", type=str, help="model bundle directory")
+    parser.add_argument("wav_scp", type=str, help="wav.scp")
+    parser.add_argument("output_file", type=str)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device of the decode (default: the CUDA card)")
+    parser.add_argument("--loader", type=str, default="otf", choices=["otf", "utt"],
+                        help="otf: decode raw audio with on-device features; utt "
+                             "(precomputed feature archives) is not ported yet")
+    parser.add_argument("--symbols_map", type=str, default=None)
+    parser.add_argument("--ref_labels", type=str, default=None,
+                        help="label.txt for WER scoring")
+    parser.add_argument("--attn_chunk", type=int, default=-1,
+                        help="override the bundle's encoder attention chunking (-1 keeps "
+                             "it, 0 forces full attention; > 0 is not ported yet)")
+    parser.add_argument("--beam_size", type=int, default=8)
+    parser.add_argument("--n_best", type=int, default=8)
+    parser.add_argument("--blk", type=int, default=0)
+    parser.add_argument("--sm_scale", type=float, default=1.0)
+    parser.add_argument("--max_symbols", type=int, default=220)
+    parser.add_argument("--fst_lm", type=str, default="",
+                        help="n-gram FST shallow fusion: not ported yet")
+    parser.add_argument("--backoff_id", type=int, default=0)
+    parser.add_argument("--disambig_ids", type=str, default="")
+    parser.add_argument("--fst_lm_scale", type=float, default=1.0)
+    parser.add_argument("--nonblk_reward", type=float, default=0.0)
+    parser.add_argument("--max_fst_states", type=int, default=4)
+    parser.add_argument("--fst_fusion", type=str, default="per_token",
+                        choices=["per_token", "per_beam"])
+    parser.add_argument("--fst_per_token", action="store_true")
+    parser.add_argument("--fst_topm", type=int, default=0)
+    parser.add_argument("--fst_cache_mb", type=int, default=512)
+    parser.add_argument("--fst_cache_file", type=str, default="")
+    parser.add_argument("--las_rescorer_model", type=str, default=None,
+                        help="LAS rescoring: not ported yet")
+    parser.add_argument("--las_rescorer_bw_model", type=str, default=None)
+    parser.add_argument("--las_input", type=str, default="auto",
+                        choices=["auto", "enc", "feats"])
+    parser.add_argument("--rnnt_score_scale", type=float, default=1.0)
+    parser.add_argument("--las_fw_score_scale", type=float, default=0.3)
+    parser.add_argument("--las_bw_score_scale", type=float, default=0.7)
+    parser.add_argument("--las_scale_sweep", type=str, default="")
+    parser.add_argument("--output_scores", action="store_true")
+    parser.add_argument("--min_len", type=int, default=0,
+                        help="minimum feature frames; short utterances are edge-padded")
+    parser.add_argument("--cmvn_stats", type=str, default=None)
+    parser.add_argument("--cmn", action="store_true")
+    parser.add_argument("--decode_dtype", type=str, default="auto",
+                        choices=["auto", "bfloat16", "float32"],
+                        help="matmul dtype inside the decode loop: auto = bf16 on the "
+                             "card, float32 on the CPU; scores and softmax stay float32")
+    common.add_loader_args(parser)
+    return parser
+
+
+def _check_ported(args) -> None:
+    """The flags whose paths are not ported raise, naming their ROADMAP
+    item, instead of being ignored."""
+    unported = [
+        (bool(args.fst_lm), "--fst_lm (FST shallow fusion): ROADMAP Queue 1 item 4"),
+        (bool(args.las_rescorer_model or args.las_rescorer_bw_model or args.las_scale_sweep),
+         "--las_rescorer_model, --las_rescorer_bw_model and --las_scale_sweep (LAS "
+         "rescoring): ROADMAP Queue 1 item 6"),
+        (args.loader == "utt", "--loader utt (precomputed features): ROADMAP Queue 1 item 3"),
+        (args.attn_chunk > 0, "--attn_chunk > 0 (chunked attention): ROADMAP Queue 1 item 3"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def _chunk_stream(uttids, make_chunk, bsz):
+    """Read the next batch's wavs on a thread while the device decodes.  A
+    producer's exception is re-raised on the consumer (a bad wav aborts the
+    run rather than truncating it)."""
+    q: queue.Queue = queue.Queue(maxsize=2)
+
+    def producer():
+        try:
+            for i0 in range(0, len(uttids), bsz):
+                q.put(("ok", make_chunk(uttids[i0:i0 + bsz])))
+            q.put(("done", None))
+        except BaseException as exc:  # re-raised on the main thread
+            q.put(("error", exc))
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        kind, item = q.get()
+        if kind == "error":
+            raise item
+        if kind == "done":
+            return
+        yield item
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    device = resolve_device(args.device)
+    # --attn_chunk 0 forces full attention (> 0 raised above)
+    model, _ = load_bundle(args.model, device,
+                           **({"attn_chunk": 0} if args.attn_chunk == 0 else {}))
+    args.spec_augment = False
+    args.max_freq_span = args.max_time_span = 0
+    featurizer, _, max_samples = common.featurizer_from_args(args, spec_augment=False,
+                                                             device=device)
+    cfg = BeamConfig(beam_size=args.beam_size, n_best=args.n_best, blank=args.blk,
+                     sm_scale=args.sm_scale, max_symbols=args.max_symbols,
+                     nonblk_reward=args.nonblk_reward, max_fst_states=args.max_fst_states,
+                     lm_topm=args.fst_topm, mm_dtype=args.decode_dtype)
+
+    sym_map = read_symbol_table(args.symbols_map) if args.symbols_map else None
+    bsz = args.batch_size
+    scp = read_wav_scp(args.wav_scp)
+    min_samples = 0
+    if args.min_len > 0:
+        # frames = 1 + (n - frame_len) // shift, inverted for min_len
+        fbc = common.fbank_from_args(args)
+        min_samples = (args.min_len - 1) * fbc.frame_shift + fbc.frame_length
+
+    def make_chunk(chunk):
+        # a short last batch is filled with rows of silence at full length
+        wavs = np.zeros((bsz, max_samples), np.float32)
+        lens = np.full(bsz, max_samples, np.int32)
+        audio = 0.0
+        for i, uttid in enumerate(chunk):
+            pcm, rate = read_wav(scp[uttid])
+            x = seg.from_float32(seg.to_float32(pcm), "int16").astype(np.float32)
+            x = x[:max_samples]
+            if len(x) < min_samples:
+                mode = "edge" if len(x) else "constant"
+                x = np.pad(x, (0, min(min_samples, max_samples) - len(x)), mode=mode)
+            wavs[i, :len(x)] = x
+            lens[i] = len(x)
+            audio += len(x) / rate
+        return chunk, wavs, lens, audio
+
+    t_start = time.perf_counter()
+    hyp_best = {}
+    n_utts = 0
+    total_audio = 0.0
+    with open(args.output_file, "w", encoding="utf-8") as out_f:
+        for chunk, wavs, lens, audio in _chunk_stream(list(scp), make_chunk, bsz):
+            total_audio += audio
+            n_utts += len(chunk)
+            out = beam_search_waveforms(model, featurizer, torch.from_numpy(wavs).to(device),
+                                        torch.from_numpy(lens).to(device), cfg)
+            host = {k: out[k].cpu().numpy() for k in ("tokens", "lens", "scores")}
+            best_idx, _ = rerank_nbest(host["scores"], host["lens"], rnnt_scale=args.rnnt_score_scale)
+            for i, uttid in enumerate(chunk):
+                for j in range(args.n_best):
+                    toks = [int(t) for t in host["tokens"][i, j, :int(host["lens"][i, j])]]
+                    text = ("".join(sym_map.get(t, f"<{t}>") for t in toks) if sym_map
+                            else " ".join(map(str, toks)))
+                    out_f.write(text)
+                    if args.output_scores:
+                        out_f.write(f" {float(host['scores'][i, j])}")
+                    out_f.write("\n")
+                bj = int(best_idx[i])
+                hyp_best[uttid] = [str(int(t)) for t in host["tokens"][i, bj, :int(host["lens"][i, bj])]]
+
+    elapsed = time.perf_counter() - t_start
+    rtf = elapsed / max(total_audio, 1e-9)
+    print(f"decoded {n_utts} utts, {total_audio:.1f}s audio in {elapsed:.1f}s "
+          f"(RTF {rtf:.4f}, {n_utts / elapsed:.2f} utt/s)", file=sys.stderr)
+
+    if args.ref_labels:
+        refs = {uttid: [str(int(x)) for x in vec]
+                for uttid, vec in read_int_vectors(args.ref_labels).items() if uttid in hyp_best}
+        n_unref = len(hyp_best) - len(refs)
+        if n_unref or not refs:
+            # unmatched hypotheses are left out of the score, and an empty
+            # intersection would print a perfect 0% WER
+            print(f"WARNING: {n_unref} decoded utterances have no reference "
+                  f"({len(refs)} of {len(hyp_best)} scored) — check that "
+                  "--ref_labels ids match wav.scp ids", file=sys.stderr)
+        wer, counts = score_wer(refs, hyp_best)
+        print(f"%WER {wer * 100:.2f} [ {counts['errors']} / {counts['words']}, "
+              f"{counts['ins']} ins, {counts['del']} del, {counts['sub']} sub ]", file=sys.stderr)
+        return wer
+    return None
+
+
+def cli():
+    """Console-script entry: ``main`` returns the WER for programmatic use,
+    which ``sys.exit`` would misread as an exit status."""
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions,
+and the decode loops' CUDA graphs against their eager loops.
 
 Needs a CUDA card and nvcc; skips without a card.  This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -12,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from pika_tpu_torch.decode.beam import BeamConfig, beam_search, beam_search_eager
+from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager
+from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.models.transformer import MultiHeadedAttention
 from pika_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -502,3 +506,82 @@ def test_k4_rejects_head_widths_past_128(cuda_device):
     q, k, v, _ = _k4_case(cuda_device, 1, 2, 40, 192)
     with pytest.raises(ValueError, match="d_head > 128"):
         flash_attention(q, k, v)
+
+
+# the decode loops on the card: one CUDA graph of the body, against the same
+# body run eagerly (which launches the same kernels, so the bits agree)
+DECODE_MODEL = dict(input_dim=60, vocab_size=300, hid_dim=128, encoder_type="tdnn_transformer",
+                    decoder_type="rnn", dec_layers=2, embd_dim=32, tdnn_nhid=64, tdnn_layers=5)
+
+
+def _decode_case(device, b=3, t=10, seed=0):
+    model = init_transducer(TransducerConfig(**DECODE_MODEL),
+                            torch.Generator(device).manual_seed(0), device)
+    g = torch.Generator(device).manual_seed(seed)
+    enc = torch.randn(b, t, DECODE_MODEL["hid_dim"], generator=g, device=device) * 2
+    lens = torch.tensor([t, max(1, t // 2), 1][:b] + [t] * max(0, b - 3), device=device)
+    return model, enc, lens
+
+
+def _assert_same_nbest(a, b):
+    for name in ("tokens", "lens", "aligns", "align_lens", "scores", "steps"):
+        assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.parametrize("beam", [4, 8])
+def test_beam_graph_matches_eager(cuda_device, beam):
+    model, enc, lens = _decode_case(cuda_device)
+    cfg = BeamConfig(beam_size=beam, n_best=4, max_symbols=12)
+    graphed = beam_search(model, enc, lens, cfg)
+    eager = beam_search_eager(model, enc, lens, cfg)
+    _assert_same_nbest(graphed, eager)
+    assert all(loop.graph is not None for loop in model._decode_loops.values())
+
+
+def test_beam_graph_replays_give_identical_bits(cuda_device):
+    """Two searches replay one captured graph and give the same bits."""
+    model, enc, lens = _decode_case(cuda_device)
+    cfg = BeamConfig(beam_size=8, n_best=8, max_symbols=12)
+    first = beam_search(model, enc, lens, cfg)
+    graph = next(iter(model._decode_loops.values())).graph
+    _assert_same_nbest(first, beam_search(model, enc, lens, cfg))
+    assert len(model._decode_loops) == 1
+    assert next(iter(model._decode_loops.values())).graph is graph
+
+
+def test_beam1_equals_greedy_on_card(cuda_device):
+    model, enc, _ = _decode_case(cuda_device)
+    lens = torch.full((3,), enc.shape[1], device=cuda_device)
+    hyps, hyp_lens = greedy_decode(model, enc, lens, max_symbols=12)
+    out = beam_search(model, enc, lens, BeamConfig(beam_size=1, n_best=1, max_symbols=12))
+    assert torch.equal(out["lens"][:, 0], hyp_lens)
+    assert torch.equal(out["tokens"][:, 0], hyps)
+
+
+def test_decode_bf16_on_card(cuda_device):
+    """``"auto"`` is bf16 on the card: finite scores, graph equal to eager."""
+    model, enc, lens = _decode_case(cuda_device)
+    cfg = BeamConfig(beam_size=8, n_best=4, max_symbols=12, mm_dtype="auto")
+    out = beam_search(model, enc, lens, cfg)
+    assert torch.isfinite(out["scores"][:, 0]).all()
+    _assert_same_nbest(out, beam_search_eager(model, enc, lens, cfg))
+    loop = next(iter(model._decode_loops.values()))
+    assert loop.state["dec_h"].dtype == torch.bfloat16
+    for a, b in zip(greedy_decode(model, enc, lens, 12, mm_dtype="auto"),
+                    greedy_decode_eager(model, enc, lens, 12, mm_dtype="auto")):
+        assert torch.equal(a, b)
+
+
+def test_graph_recaptured_on_shape_change(cuda_device):
+    """A new (B, T') captures a new graph; each matches its eager loop."""
+    model, enc, lens = _decode_case(cuda_device)
+    cfg = BeamConfig(beam_size=4, n_best=2, max_symbols=8)
+    for b, t in ((3, 10), (3, 12), (5, 10)):
+        _, enc, lens = _decode_case(cuda_device, b, t, seed=t)
+        _assert_same_nbest(beam_search(model, enc, lens, cfg),
+                           beam_search_eager(model, enc, lens, cfg))
+        hyps = greedy_decode(model, enc, lens, max_symbols=8)
+        for x, y in zip(hyps, greedy_decode_eager(model, enc, lens, max_symbols=8)):
+            assert torch.equal(x, y)
+    loops = model._decode_loops
+    assert len(loops) == 6 and all(loop.graph is not None for loop in loops.values())

@@ -1,9 +1,10 @@
 """The port's inference slice end to end against the JAX package: the same
 waveforms and weights through ``make_eval_step`` and
 ``greedy_decode_waveforms`` in both.  The losses agree to 1e-3 relative (bf16
-rounding in attention); the greedy hypotheses and lengths are identical.
-Also: the package imports with JAX blocked, and ``chip_smoke.py`` refuses to
-run without a CUDA card."""
+rounding in attention); the greedy hypotheses and lengths are identical, at
+any interval between the host's reads of the loop's device flag.  Also: the
+package imports with JAX, Orbax and the JAX package blocked, and
+``chip_smoke.py`` refuses to run without a CUDA card."""
 
 import os
 import pkgutil
@@ -29,7 +30,7 @@ from pika_tpu.train.step import (
     make_featurizer as featurizer_jax,
 )
 from pika_tpu_torch.convert import load_flax_variables
-from pika_tpu_torch.decode.greedy import greedy_decode_waveforms
+from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_waveforms
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_eval_step, make_featurizer
@@ -111,24 +112,51 @@ def test_greedy_decode_matches_jax(slice_inputs):
     assert int(lens.sum()) > 0  # the comparison exercised emissions
 
 
+@pytest.mark.parametrize("steps_per_check", [1, 7])
+def test_greedy_decode_check_intervals(slice_inputs, steps_per_check):
+    """The masked greedy loop gives test_greedy_decode_matches_jax's
+    hypotheses whether the host reads the device flag every step or every
+    7 steps."""
+    s = slice_inputs
+    ref_hyps, ref_lens = greedy_jax(s["model"], s["variables"], _jax(s),
+                                    jnp.asarray(s["wavs"]), jnp.asarray(s["wav_lens"]),
+                                    max_symbols=12)
+    model, featurizer = _port(s)
+    feats, feat_lens = featurizer(torch.from_numpy(s["wavs"]), torch.from_numpy(s["wav_lens"]))
+    with torch.no_grad():
+        enc = model.encode(feats, feat_lens)
+    hyps, lens = greedy_decode(model, enc, model.encoder_out_len(feat_lens), max_symbols=12,
+                               steps_per_check=steps_per_check)
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref_lens))
+    np.testing.assert_array_equal(hyps.numpy(), np.asarray(ref_hyps))
+
+
+BLOCKED = ("jax", "flax", "optax", "orbax", "pika_tpu")
+
+
 def test_imports_without_jax():
-    """Every module of the port imports with jax, flax and optax blocked."""
+    """Every module of the port imports with jax, flax, optax, orbax and the
+    JAX package blocked."""
     names = [m.name for m in pkgutil.walk_packages(pika_tpu_torch.__path__, "pika_tpu_torch.")]
-    assert "pika_tpu_torch.ops.rnnt_kernels" in names
+    for name in ("pika_tpu_torch.ops.rnnt_kernels", "pika_tpu_torch.data.wavio",
+                 "pika_tpu_torch.utils.dtypes", "pika_tpu_torch.train.bundle",
+                 "pika_tpu_torch.train.eval_transducer", "pika_tpu_torch.decode.beam"):
+        assert name in names
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'optax'): sys.modules[m] = None\n"
+            f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
             f"import importlib\nfor n in {names!r}: importlib.import_module(n)\n"
-            "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax') and v is not None "
+            f"assert not any(k.split('.')[0] in {BLOCKED!r} and v is not None "
             "for k, v in sys.modules.items())\nprint('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(" + "|".join(BLOCKED) + r")\b", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "pika_tpu_torch")):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f), encoding="utf-8") as fh:
-                    assert not pattern.search(fh.read()), f
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            assert not pattern.search(fh.read()), path
 
 
 def _smoke(cwd, script):
