@@ -24,6 +24,14 @@ V=6268, random weights from a seed):
 * the decode CLI (``train/eval_transducer.py``) in-process on 8 synthetic
   10 s wavs and a port bundle of the model: 8 x 8 N-best lines and a WER
   line (a random model's WER is printed, not judged);
+* FST shallow fusion on the same 8 utterances: a synthetic bigram ARPA over
+  all V units written from a seed, ``compile_arpa`` and the advance cache
+  (host build times, the cache written to its file and read back), beam 8
+  in the per-beam, per-token top-8 cached, per-token exact and top-8 walk
+  modes (each graphed against its eager loop, timed beside the plain
+  beam), a trigram check of the walk's backoff levels (the card against
+  the CPU and the cache), and the CLI with ``--fst_lm``; the exact and
+  walk searches are profiled after every other phase;
 * the training path: ``bench.py``'s step on 32 utterances of 10 s with 40
   labels -- dither 1.0, SpecAugment, dropout 0.2, the loss through K1
   forward and K2/K3 backward (bf16 products, z once per backward), inf-norm clipping
@@ -36,7 +44,9 @@ V=6268, random weights from a seed):
   ragged shapes, at the three encoder layers' shapes (B = 8 and 32) and at
   one 60 s shape, timed at the training shape beside their bound, their
   plain version and ``scaled_dot_product_attention`` (a yardstick the port
-  never calls); the eval step and greedy decode of 8 utterances of 10 s
+  never calls), and the d = 256 kernels at (32, 8, 239, 256) beside
+  their plain version and SDPA; the eval step and greedy decode of 8
+  utterances of 10 s
   (3 K4 launches per encoder pass; the loss against the exact path's); the
   eval step on 4 utterances of 60 s with 240 labels on the flash and on the
   exact path (peak memory, wall time, losses); the eval step of the model at
@@ -66,6 +76,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -81,6 +92,13 @@ from pika_tpu_torch.decode.beam import (
     beam_search,
     beam_search_eager,
     beam_search_waveforms,
+)
+import pika_tpu_torch.decode.fst as fst_module
+from pika_tpu_torch.decode.fst import (
+    compile_arpa,
+    fst_advance_sets,
+    fst_final_scores,
+    init_state_sets,
 )
 from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager, greedy_decode_waveforms
 from pika_tpu_torch.features.fbank import FbankConfig
@@ -174,9 +192,18 @@ OPTIM = dict(initial_lr=0.003, final_lr=0.0001, total_batches=100000, momentum=0
 # as a share of the largest reference entry; lse is float32 (sums over T in
 # another order)
 K4_REL_L2, K4_MAX_REL, K4_LSE_ATOL = 1e-2, 1e-2, 1e-4
-K4_NOISE = 1e-5  # a gradient whose reference stays under this is held to it absolute
+# a gradient whose reference stays under this is held to it absolute (times
+# d / 128 past d = 128: ds = p (dp - di) at T = 1 is float32 noise of two
+# sums over d taken in other orders)
+K4_NOISE = 1e-5
 # (heads, T, d_head) of the encoder's three attention layers at 10 s
 FLASH_LAYERS = ((16, 992, 64), (16, 974, 64), (8, 239, 128))
+# the third layer at tdnn_nhid = 2048, the smallest width whose heads
+# (16, 16, 8) reach d_head 256: K4's d = 256 kernels
+D256_LAYER = (8, 239, 256)
+# FST fusion: a synthetic bigram ARPA over all V units (each context with
+# FST_BIGRAMS continuations), lm_scale and nonblk_reward of the decode
+FST_BIGRAMS, FST_SCALE, FST_REWARD = 40, 0.5, 0.5
 SMALL_NHID = 256  # egs/mini_*.sh's tdnn_nhid: d_head 16, 16 and 32
 LONG_SECONDS, LONG_BATCH, LONG_LABELS = 60, 4, 240
 # flash against exact attention (same weights and seed), bf16 rounding in
@@ -690,16 +717,23 @@ def k4_case(device, seed: int, b: int, h: int, t: int, d: int):
     return randn(2.0 / math.sqrt(d)), randn(1.0), randn(1.0), randn(1.0)
 
 
-def k4_reference(q, k, v, do):
-    """K4's plain forward, then its plain backward from that forward's o and
-    lse, a few utterances at a time so that one call's (b, h, T, T) float32
-    scores stay near 2 GB."""
+def k4_chunks(q):
+    """Slices of a few utterances, so that one plain call's (b, h, T, T)
+    float32 scores stay near 2 GB."""
     chunk = max(1, int(2e9 // (4 * q.shape[1] * q.shape[2] ** 2)))
-    parts = []
-    for i in range(0, q.shape[0], chunk):
-        sl = slice(i, i + chunk)
-        o, lse = flash_attention_reference(q[sl], k[sl], v[sl])
-        parts.append((o, lse) + flash_attention_bwd_reference(q[sl], k[sl], v[sl], o, lse, do[sl]))
+    return [slice(i, i + chunk) for i in range(0, q.shape[0], chunk)]
+
+
+def k4_reference(q, k, v):
+    """K4's plain forward ``(o, lse)``, in chunks."""
+    parts = [flash_attention_reference(q[sl], k[sl], v[sl]) for sl in k4_chunks(q)]
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def k4_bwd_reference(q, k, v, o, lse, do):
+    """K4's plain backward ``(dq, dk, dv)`` from ``o`` and ``lse``, in chunks."""
+    parts = [flash_attention_bwd_reference(q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl])
+             for sl in k4_chunks(q)]
     return [torch.cat(x) for x in zip(*parts)]
 
 
@@ -718,13 +752,20 @@ def k4_parity(device) -> dict:
     cases += [(f"layer {i} B={b}", (b, h, t, d)) for b in (BATCH, TRAIN_BATCH)
               for i, (h, t, d) in enumerate(FLASH_LAYERS)]
     cases.append((f"{LONG_SECONDS} s", (LONG_BATCH, 16, 5992, 64)))
+    cases += [("ragged d=256", (2, 3, 37, 256)), ("ragged d=256", (1, 2, 1, 256)),
+              ("d=256 layer B=8", (BATCH,) + D256_LAYER),
+              ("d=256 layer B=32", (TRAIN_BATCH,) + D256_LAYER)]
     for name, shape in cases:
         q, k, v, do = k4_case(device, 4, *shape)
-        ref_o, ref_lse, ref_dq, ref_dk, ref_dv = k4_reference(q, k, v, do)
+        # each kernel runs before the plain version of its output: a freed
+        # block of the plain results can then never stand in for a kernel's
+        # unwritten output
         o, lse = flash_attention_fwd(q, k, v)
+        ref_o, ref_lse = k4_reference(q, k, v)
         dk, dv = flash_attention_bwd_dkv(q, k, v, ref_o, ref_lse, do)
         dq = flash_attention_bwd_dq(q, k, v, ref_o, ref_lse, do)
         torch.cuda.synchronize()
+        ref_dq, ref_dk, ref_dv = k4_bwd_reference(q, k, v, ref_o, ref_lse, do)
         lse_err = (lse - ref_lse).abs().max().item()
         check(bool(torch.isfinite(lse).all()) and lse_err <= K4_LSE_ATOL,
               f"K4 {name} {shape} lse: max abs err {lse_err} (atol {K4_LSE_ATOL})")
@@ -736,8 +777,9 @@ def k4_parity(device) -> dict:
             scale = ref.abs().max().item()
             rel = ((got - ref).norm() / ref.norm().clamp(min=1e-30)).item()
             check(bool(torch.isfinite(got).all()), f"K4 {name} {shape} {g_name} finite")
-            if scale < K4_NOISE:  # 0 but for float noise (dk at T = 1: ds = p (dp - di) = 0)
-                rel, scale = 0.0, K4_NOISE / K4_MAX_REL
+            noise = K4_NOISE * max(1.0, shape[-1] / 128)
+            if scale < noise:  # 0 but for float noise (dk at T = 1: ds = p (dp - di) = 0)
+                rel, scale = 0.0, noise / K4_MAX_REL
             check(rel <= K4_REL_L2 and err <= K4_MAX_REL * scale,
                   f"K4 {name} {shape} {g_name}: rel L2 {rel} (tol {K4_REL_L2}), max abs {err} "
                   f"(tol {K4_MAX_REL} x {scale})")
@@ -801,6 +843,7 @@ def k4_parity(device) -> dict:
             f"{out[key]['bound_ms']:.3f} ms ({out[key]['bound_by']}, bf16 "
             f"{PEAK_BF16 / 1e12:.0f} TFLOP/s)")
     say("  (the plain and library backward times are one call that yields dq, dk and dv)")
+    k4_d256_times(device, sdpa)
     pair, pair_flops = times["dkv"] + times["dq"], bounds["dkv"][0] + bounds["dq"][0]
     say(f"K4 backward, B={TRAIN_BATCH}, three layers: dk/dv {times['dkv']:.3f} + dq "
         f"{times['dq']:.3f} = {pair:.3f} ms ({pair_flops / pair / 1e9:.1f} TFLOP/s; "
@@ -809,6 +852,43 @@ def k4_parity(device) -> dict:
         f"{pair + times['di']:.3f} ms as autograd runs it "
         f"({(pair + times['di']) / times['sdpa_bwd']:.2f}x)")
     return out
+
+
+
+def k4_d256_times(device, sdpa) -> None:
+    """K4's d = 256 kernels timed at the tdnn_nhid = 2048 model's third layer
+    (B = 32): each beside its plain version, its bound and
+    scaled_dot_product_attention at the same shape (not in the kernels line,
+    which reports the flagship's three layers)."""
+    b, (h, t, d) = TRAIN_BATCH, D256_LAYER
+    q, k, v, do = k4_case(device, 6, b, h, t, d)
+    o, lse = flash_attention_fwd(q, k, v)
+    di = flash_attention_di(o, do)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = sdpa(*leaves, scale=1.0)
+    ms = {
+        "fwd": time_ms(lambda: flash_attention_fwd(q, k, v), 3, 20),
+        "dkv": time_ms(lambda: flash_attention_bwd_dkv(q, k, v, o, lse, do, di=di), 3, 20),
+        "dq": time_ms(lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, di=di), 3, 20),
+        "plain_fwd": time_ms(lambda: flash_attention_reference(q, k, v), 1, 3),
+        "plain_bwd": time_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 1, 3),
+        "sdpa_fwd": time_ms(lambda: sdpa(q, k, v, scale=1.0), 3, 20),
+        "sdpa_bwd": time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3, 20),
+    }
+    flops = b * h * t * t * d
+    parts = []
+    for key, mult, n_bf16, n_f32 in (("fwd", 4, 4, 1), ("dkv", 8, 6, 2), ("dq", 6, 5, 2)):
+        bnd = bound(mult * flops, k4_bytes(b, h, t, d, n_bf16, n_f32), PEAK_BF16)
+        parts.append(f"{key} {ms[key]:.3f} ms ({mult * flops / ms[key] / 1e9:.1f} TFLOP/s, bound "
+                     f"{bnd['bound_ms']:.3f})")
+    say(f"K4 d=256, B,h,T,d=({b}, {h}, {t}, {d}): " + ", ".join(parts)
+        + f"; plain fwd {ms['plain_fwd']:.3f}, bwd {ms['plain_bwd']:.3f} ms; "
+        f"scaled_dot_product_attention fwd {ms['sdpa_fwd']:.3f}, bwd {ms['sdpa_bwd']:.3f} ms; "
+        f"backward {ms['dkv'] + ms['dq']:.3f} ms = "
+        f"{(ms['dkv'] + ms['dq']) / ms['sdpa_bwd']:.2f}x SDPA's, forward "
+        f"{ms['fwd'] / ms['sdpa_fwd']:.2f}x")
+    del q, k, v, do, o, lse, di, leaves, out
+    torch.cuda.empty_cache()
 
 
 def reset_launches() -> None:
@@ -1070,12 +1150,14 @@ def beam_path(device) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_beam(device) -> None:
-    """The profiled graphed beam 8 search, last of all phases: with it in
-    the beam phase, the host-driven work of later phases ran slower than
-    before the decode phases existed (on an H100: the loss DP loops by
-    about 40%, the 4 x 60 s eval step by 20%); with it here the eval and
-    train steps matched the parent's again."""
+def profile_beam(device, work: str) -> None:
+    """The profiled graphed beam 8 search, then the FST per-token exact and
+    walk searches (the bigram of ``fst_path``, its advance cache read from
+    its file), last of all phases: with a profile in the beam phase, the
+    host-driven work of later phases ran slower than before the decode
+    phases existed (on an H100: the loss DP loops by about 40%, the 4 x 60 s
+    eval step by 20%); with it here the eval and train steps matched the
+    parent's again."""
     model, featurizer = eval_setup(device)
     batch = flagship_batch(device, BATCH)
     with torch.no_grad():
@@ -1086,6 +1168,19 @@ def profile_beam(device) -> None:
     beam_search(model, enc, enc_lens, cfg)  # capture
     profile(lambda: beam_search(model, enc, enc_lens, cfg)["steps"].item(),
             f"graphed beam {BEAM} search")
+    arpa = os.path.join(work, "lm.arpa")
+    tables = compile_arpa(arpa, {f"u{k}": k + 1 for k in range(VOCAB)})
+    base = dict(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS, lm_scale=FST_SCALE,
+                nonblk_reward=FST_REWARD, lm_per_token=True)
+    for name, cache_mb, topm in (("per-token exact", 512, 0), ("per-token top-8 walk", 0, 8)):
+        tabs = tables.device_arrays(device, n_ilabels=VOCAB + 1, cache_max_bytes=cache_mb << 20,
+                                    cache_file=arpa + ".advcache.npz")
+        fst_cfg = BeamConfig(**base, lm_topm=topm)
+        beam_search(model, enc, enc_lens, fst_cfg, tabs, tables.start)  # capture
+        profile(lambda: beam_search(model, enc, enc_lens, fst_cfg, tabs,
+                                    tables.start)["steps"].item(),
+                f"graphed FST {name} beam {BEAM} search")
+        del tabs
     del model, featurizer, enc
     torch.cuda.empty_cache()
 
@@ -1110,10 +1205,11 @@ def flash_beam_path(device) -> None:
     torch.cuda.empty_cache()
 
 
-def eval_cli_path(device) -> None:
+def eval_cli_path(device, extra=(), what="eval CLI") -> str:
     """The decode CLI in-process on 8 synthetic 10 s wavs: a port bundle of
-    the seed-0 flagship model, beam 8, n_best 8, --ref_labels; 8 x 8 N-best
-    lines and a WER line (a random model's WER is printed, not judged)."""
+    the seed-0 flagship model, beam 8, n_best 8, --ref_labels and the
+    ``extra`` flags; 8 x 8 N-best lines and a WER line (a random model's WER
+    is printed, not judged)."""
     model, _ = eval_setup(device)
     rng = np.random.default_rng(1)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1136,15 +1232,236 @@ def eval_cli_path(device) -> None:
                              "--max_symbols", str(MAX_SYMBOLS), "--max_wav_seconds", str(SECONDS),
                              "--symbols_map", os.path.join(tmp, "units.txt"),
                              "--ref_labels", f"ark:{os.path.join(tmp, 'label.txt')}",
-                             "--output_scores"])
+                             "--output_scores", *extra])
         with open(nbest) as f:
             lines = f.read().splitlines()
     for line in err.getvalue().splitlines():
-        say(f"eval CLI: {line}")
-    check(len(lines) == BATCH * NBEST, f"eval CLI wrote {len(lines)} N-best lines")
+        say(f"{what}: {line}")
+    check(len(lines) == BATCH * NBEST, f"{what} wrote {len(lines)} N-best lines")
     check(wer is not None and any(x.startswith("%WER") for x in err.getvalue().splitlines()),
-          "eval CLI printed a WER line")
-    say(f"eval CLI: {len(lines)} N-best lines, WER {wer:.4f} (random weights, not judged): ok")
+          f"{what} printed a WER line")
+    say(f"{what}: {len(lines)} N-best lines, WER {wer:.4f} (random weights, not judged): ok")
+    return err.getvalue()
+
+
+
+def write_arpa(path: str, grams: dict) -> None:
+    """An ARPA file of ``grams``: {order: [(words, log10 p, log10 bow or
+    None), ...]}."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\\data\\\n" + "".join(f"ngram {n}={len(g)}\n" for n, g in grams.items()))
+        for n, g in grams.items():
+            f.write(f"\n\\{n}-grams:\n")
+            f.writelines(f"{p:.4f} {' '.join(w)}" + ("" if bow is None else f" {bow:.4f}") + "\n"
+                         for w, p, bow in g)
+        f.write("\n\\end\\\n")
+
+
+def bigram_grams(seed: int = 0) -> dict:
+    """A seeded bigram LM over all V units ("u0".."u{V-1}", the eval CLI's
+    symbol table): every unit a unigram with a backoff weight, <s> and
+    </s>, and FST_BIGRAMS distinct continuations of <s> and of each unit
+    (</s> among them for a quarter of the contexts)."""
+    rng = np.random.default_rng(seed)
+    words = [f"u{k}" for k in range(VOCAB)]
+    uni = [(("<s>",), -99.0, -0.5), (("</s>",), -1.5, None)]
+    uni += [((w,), float(p), float(bow)) for w, p, bow in
+            zip(words, rng.uniform(-5.0, -2.5, VOCAB), rng.uniform(-1.0, -0.1, VOCAB))]
+    ctx = ["<s>"] + words
+    # start + stride * j (mod V), stride < V / FST_BIGRAMS: FST_BIGRAMS distinct units
+    start = rng.integers(0, VOCAB, (len(ctx), 1))
+    stride = rng.integers(1, VOCAB // FST_BIGRAMS, (len(ctx), 1))
+    nxt = (start + stride * np.arange(FST_BIGRAMS)) % VOCAB
+    logp = rng.uniform(-2.5, -0.3, nxt.shape)
+    ends = rng.random(len(ctx)) < 0.25
+    bi = []
+    for i, c in enumerate(ctx):
+        bi += [((c, words[j]), float(p), None) for j, p in zip(nxt[i], logp[i])]
+        if ends[i]:
+            bi.append(((c, "</s>"), float(logp[i, 0]), None))
+    return {1: uni, 2: bi}
+
+
+def trigram_grams(seed: int = 1, n_words: int = 60) -> dict:
+    """A seeded trigram LM over units 1..n_words: unigrams and bigrams with
+    backoff weights, and trigrams after 200 of the bigram histories, so a
+    walk collects matches at up to three backoff levels."""
+    rng = np.random.default_rng(seed)
+    words = [f"u{k}" for k in range(1, n_words + 1)]
+    uni = [(("<s>",), -99.0, -0.4), (("</s>",), -1.6, None)]
+    uni += [((w,), float(rng.uniform(-2.5, -1.0)), float(rng.uniform(-0.8, -0.1))) for w in words]
+    bi = []
+    for c in ["<s>"] + words:
+        for j in rng.choice(n_words, 15, replace=False):
+            bi.append(((c, words[j]), float(rng.uniform(-1.5, -0.2)),
+                       float(rng.uniform(-0.6, -0.05))))
+    tri = []
+    for h in rng.choice(len(bi), 200, replace=False):
+        for j in rng.choice(n_words, 5, replace=False):
+            tri.append((bi[h][0] + (words[j],), float(rng.uniform(-1.0, -0.1)), None))
+    return {1: uni, 2: bi, 3: tri}
+
+
+def set_dicts(states, costs) -> list:
+    """Each state set as {state: cost rounded to 1e-4}, for comparing sets
+    whose slot order may differ."""
+    return [{int(s): round(float(c), 4) for s, c in zip(row_s, row_c) if s >= 0}
+            for row_s, row_c in zip(states.reshape(-1, states.shape[-1]).tolist(),
+                                    costs.reshape(-1, costs.shape[-1]).tolist())]
+
+
+def trigram_walk_check(device, work: str) -> None:
+    """The walk path's backoff levels on a trigram: 8 x 8 state sets advanced
+    12 steps on random labels by the walk on the card and on the CPU (bit
+    for bit: float32 adds, mins and gathers), and by the advance cache on
+    the card (the same sets; LM scores to 1e-5); some set holds matches of
+    two or more levels.  Then the final scores, walked and cached."""
+    path = os.path.join(work, "tri.arpa")
+    write_arpa(path, trigram_grams())
+    tables = compile_arpa(path, {f"u{k}": k + 1 for k in range(VOCAB)})
+    walk, walk_cpu = tables.device_arrays(device), tables.device_arrays("cpu")
+    cached = tables.device_arrays(device, n_ilabels=62, cache_max_bytes=64 << 20)
+    check(int(cached["adv_cost"].shape[-1]) >= 2, "trigram advance cache holds 2+ matches")
+    g = torch.Generator().manual_seed(3)
+    sets = {name: init_state_sets(tables, (BATCH, BEAM), 4, dev)
+            for name, dev in (("walk", device), ("cpu", "cpu"), ("cached", device))}
+    widest = 0
+    for step in range(12):
+        labels = torch.randint(2, 62, (BATCH, BEAM), generator=g)
+        lm = {}
+        for name, tabs in (("walk", walk), ("cpu", walk_cpu), ("cached", cached)):
+            st, co = sets[name]
+            *sets[name], lm[name] = fst_advance_sets(tabs, st, co, labels.to(st.device), 6,
+                                                     FST_REWARD)
+        for x, y in zip(sets["walk"] + [lm["walk"]], sets["cpu"] + [lm["cpu"]]):
+            check(torch.equal(x.cpu(), y), f"trigram walk, step {step}: card = CPU bit for bit")
+        check(set_dicts(*sets["walk"]) == set_dicts(*sets["cached"]),
+              f"trigram step {step}: walk and cache give the same sets")
+        check(torch.allclose(lm["walk"], lm["cached"], rtol=1e-5, atol=1e-5),
+              f"trigram step {step}: walk and cache give the same LM scores")
+        widest = max(widest, int((sets["walk"][0] >= 0).sum(-1).max()))
+    check(widest >= 2, "trigram sets hold matches of 2+ backoff levels")
+    fin = fst_final_scores(walk, *sets["walk"])
+    fin_cached = fst_final_scores(cached, *sets["cached"])
+    check(torch.allclose(fin, fin_cached, rtol=1e-5, atol=1e-5), "trigram final scores")
+    say(f"FST trigram ({tables.n_states} states, {len(tables.arc_ilabel)} arcs): 12 steps of 8 x 8 "
+        f"sets, walk on the card = walk on the CPU bit for bit, = advance cache (Lm="
+        f"{cached['adv_cost'].shape[-1]}); up to {widest} states a set: ok")
+
+
+def fst_path(device, work: str) -> None:
+    """FST shallow fusion at the flagship width on the inference batch: a
+    synthetic bigram ARPA over all V units, compile_arpa and the advance
+    cache (host build times, the cache kept in ``work``); beam 8, n_best 8,
+    200 symbols in the per-beam, per-token top-8 cached, per-token exact and
+    walk (no cache) modes, each graphed against its eager loop (identical
+    N-bests) and timed beside the plain beam; the cached top-8 against the
+    walk; the trigram check; the CLI with --fst_lm reading the cache file."""
+    model, featurizer = eval_setup(device)
+    batch = flagship_batch(device, BATCH)
+    with torch.no_grad():
+        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+        enc = model.encode(feats, feat_lens)
+        enc_lens = model.encoder_out_len(feat_lens)
+    t_out = enc.shape[1]
+    arpa = os.path.join(work, "lm.arpa")
+    t0 = time.perf_counter()
+    grams = bigram_grams()
+    write_arpa(arpa, grams)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = compile_arpa(arpa, {f"u{k}": k + 1 for k in range(VOCAB)})
+    compile_s = time.perf_counter() - t0
+    build, build_s = fst_module.build_advance_cache, []
+
+    def timed_build(*args, **kwargs):  # the host build alone, inside device_arrays
+        t0 = time.perf_counter()
+        out = build(*args, **kwargs)
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    fst_module.build_advance_cache = timed_build
+    try:
+        t0 = time.perf_counter()
+        cached = tables.device_arrays(device, n_ilabels=VOCAB + 1, cache_max_bytes=512 << 20,
+                                      cache_file=arpa + ".advcache.npz")
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+    finally:
+        fst_module.build_advance_cache = build
+    check(len(build_s) == 1, "the advance cache was built once")
+    check("adv_cost" in cached, "the flagship bigram's advance cache fits 512 MB")
+    adv = cached["adv_cost"]
+    t0 = time.perf_counter()
+    again = tables.device_arrays(device, n_ilabels=VOCAB + 1, cache_max_bytes=512 << 20,
+                                 cache_file=arpa + ".advcache.npz")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(torch.equal(again["adv_cost"], adv) and torch.equal(again["adv_next"],
+                                                                cached["adv_next"]),
+          "the advance cache read back from its file")
+    del again
+    say(f"FST bigram ARPA over {VOCAB} units ({len(grams[2])} bigrams): written in {write_s:.3f} "
+        f"s, compile_arpa {compile_s:.3f} s ({tables.n_states} states, {len(tables.arc_ilabel)} "
+        f"arcs, {cached.search_iters} search steps); advance cache (N x V x Lm = "
+        f"{tuple(adv.shape)}, {(adv.nbytes + cached['adv_next'].nbytes) / 2**20:.1f} MiB): "
+        f"built on the host in {build_s[0]:.3f} s, with the file write and the copy to the card "
+        f"{cache_s:.3f} s; read from its file and copied in {load_s:.3f} s")
+    walk = tables.device_arrays(device, n_ilabels=VOCAB + 1)  # no advance cache
+    plain_cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
+    plain = beam_search(model, enc, enc_lens, plain_cfg)
+    plain_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, plain_cfg))
+    plain_eager_s = dp_seconds(lambda: beam_search_eager(model, enc, enc_lens, plain_cfg), 1)
+    say(f"FST: the plain beam {BEAM} (no LM) in this phase: graphed {plain_s:.4f} s, eager "
+        f"{plain_eager_s:.4f} s, {int(plain['steps'])} steps")
+    base = dict(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS, lm_scale=FST_SCALE,
+                nonblk_reward=FST_REWARD)
+    modes = (("per-beam", cached, dict()),
+             ("per-token top-8 cached", cached, dict(lm_per_token=True, lm_topm=8)),
+             ("per-token exact", cached, dict(lm_per_token=True, lm_topm=0)),
+             ("per-token top-8 walk", walk, dict(lm_per_token=True, lm_topm=8)))
+    outs = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    for name, tabs, fusion in modes:
+        cfg = BeamConfig(**base, **fusion)
+        t0 = time.perf_counter()
+        graphed = beam_search(model, enc, enc_lens, cfg, tabs, tables.start)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graphed_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg, tabs, tables.start))
+        t0 = time.perf_counter()  # one eager search: the walk's takes seconds
+        eager = beam_search_eager(model, enc, enc_lens, cfg, tabs, tables.start)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        check(same_nbest(graphed, eager), f"FST {name}: graphed = eager")
+        check_nbest(graphed, t_out, f"FST {name}")
+        steps = int(graphed["steps"])
+        say(f"FST {name}: graphed {graphed_s:.4f} s ({steps} steps, {graphed_s / steps * 1e3:.3f} "
+            f"ms a step; first call with the capture {first_s:.3f} s), eager {eager_s:.4f} s "
+            f"({eager_s / graphed_s:.2f}x); plain beam graphed {plain_s:.4f} s "
+            f"({graphed_s / plain_s:.2f}x); top-1 lens {graphed['lens'][:, 0].tolist()}, N-best "
+            f"mean length {graphed['lens'].float().mean().item():.2f}, top-1 "
+            f"as the plain beam's on {top1_agreement(graphed, plain)} of {BATCH} rows; "
+            f"graphed = eager: ok")
+        outs[name] = graphed
+    peak = torch.cuda.max_memory_allocated(device)
+    a, b = outs["per-token top-8 cached"], outs["per-token top-8 walk"]
+    check(all(torch.equal(a[k], b[k]) for k in ("tokens", "lens", "aligns", "align_lens"))
+          and torch.allclose(a["scores"], b["scores"], rtol=1e-5),
+          "FST top-8: the advance cache and the walk give the same N-best")
+    say(f"FST: top-8 cached = top-8 walk (tokens, lens, aligns; scores to 1e-5): ok; peak "
+        f"memory of the four modes {peak / 2**30:.3f} GiB (the cache on the card included)")
+    del model, featurizer, enc, cached, walk, adv
+    torch.cuda.empty_cache()
+    trigram_walk_check(device, work)
+    t0 = time.perf_counter()
+    err = eval_cli_path(device, ["--fst_lm", arpa, "--fst_lm_scale", str(FST_SCALE),
+                                 "--nonblk_reward", str(FST_REWARD), "--fst_cache_file", "auto"],
+                        "eval CLI --fst_lm")
+    check(any(x.startswith("FST advance cache") for x in err.splitlines()),
+          "eval CLI --fst_lm: the advance cache line")
+    say(f"eval CLI --fst_lm (per-token exact, the cache read from its file): "
+        f"{time.perf_counter() - t0:.3f} s in all")
 
 
 def main() -> int:
@@ -1171,6 +1488,7 @@ def main() -> int:
         if any(key in line for key in ("registers", "spill", "bytes smem", "warning", "C75")):
             say(f"  {kernel}: {line.strip()[:160]}")
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # the FST phases' LM files
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)
     k4 = k4_parity(device)
@@ -1180,6 +1498,7 @@ def main() -> int:
     beam_path(device)
     flash_beam_path(device)
     eval_cli_path(device)
+    fst_path(device, work)
     say(f"device memory still allocated after the decode phases: "
         f"{(torch.cuda.memory_allocated(device) - held) / 2**20:+.1f} MiB")
     long_utterances(device)
@@ -1188,7 +1507,8 @@ def main() -> int:
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)
-    profile_beam(device)
+    profile_beam(device, work)
+    shutil.rmtree(work)
 
     say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}")
     say(card)

@@ -29,7 +29,8 @@
 // atomics, results identical from run to run.  Keys and queries at or past
 // T read as zeros and are masked in registers: this stands in for the
 // segment ids with which _flash pads T to the TPU block multiple.  Any
-// T >= 1; D = 64 or 128.
+// T >= 1; D = 64, 128 or 256 (the last by the mma.sync kernels of the
+// section "D = 256" below).
 //
 // All three kernels (the section "warp-specialised" below has the details)
 // are warp-specialised blocks of 128 rows: a TMA producer warp feeds a
@@ -604,6 +605,321 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---- D = 256: mma.sync kernels ---------------------------------------------
+//
+// The warp-specialised kernels above keep a 64 x D accumulator per consumer
+// warpgroup in registers, which at D = 256 (two of them for dk/dv) does not
+// fit.  These three kernels are simpler: a block of 4 warps owns 64 rows
+// (queries for the forward and dq, keys for dk/dv), 16 per warp, keeps them
+// in shared memory and loops over the other axis 32 rows at a time, loaded
+// with 16-byte loads (rows at or past T read as zeros and are masked).  The
+// products are mma.sync.m16n8k16 (bf16 in, f32 accumulate) from ldmatrix'd
+// shared tiles whose rows are padded by 16 bytes (no bank conflicts); the
+// f32 scores become the bf16 A operand of the next product in registers.
+// A warp's 16 x 256 f32 accumulator is 128 registers a thread, so the dk/dv
+// kernel splits the output columns over two blocks (blockIdx.z): each
+// recomputes p and ds over the full D and accumulates dk and dv for its
+// 128 columns.  The rounding is the other kernels': p (and ds) in bf16
+// before their products, the forward's p relative to the running max of the
+// key tiles, o divided by the f32 row sum at the end.
+namespace d256 {
+
+constexpr int D = 256, P = D + 8;  // head width; shared row stride (+16 bytes)
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kRows = 64;          // rows a block owns: 16 per warp
+constexpr int kN = 32;             // rows of a streamed tile
+constexpr int DH = D / 2;          // dk/dv output columns per block
+constexpr uint32_t kOwn = kRows * P * 2, kStream = kN * P * 2;  // tile bytes
+constexpr uint32_t kSmem = 2 * kOwn + 2 * kStream + 2 * kN * 4;
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p, bool trans) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// rows [row0, row0 + R) of a (T, D) bf16 matrix into a shared tile of row
+// stride P, rows at or past T zero-filled
+template <int R>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int row0,
+                                          int T) {
+  for (int i = threadIdx.x; i < R * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T) x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * P + c) = x;
+  }
+}
+
+// acc (16 x N, f32) = rows a_row0.. of tile a . rows 0..N-1 of tile b,
+// contracted over D
+template <int N>
+__device__ __forceinline__ void rows_dot_rows(float (&acc)[N / 8][4], const bf16* a, int a_row0,
+                                              const bf16* b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (a_row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + kk + (lane >> 4) * 8,
+                false);
+#pragma unroll
+    for (int nn = 0; nn < N; nn += 16) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (nn + (lane >> 4) * 8 + (lane & 7)) * P + kk + ((lane >> 3) & 1) * 8,
+                  false);
+      mma_16816(acc[nn / 8], af, bf[0], bf[1]);
+      mma_16816(acc[nn / 8 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x W, f32) += bf16(p) (16 x N, f32 fragments) . columns col0..
+// col0 + W of rows 0..N-1 of tile b
+template <int N, int W>
+__device__ __forceinline__ void probs_dot_tile(float (&acc)[W / 8][4], const float (&p)[N / 8][4],
+                                               const bf16* b, int col0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < W / 16; ++dn) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + col0 + dn * 16 +
+                          (lane >> 4) * 8,
+                  true);
+      mma_16816(acc[2 * dn], pa, bf[0], bf[1]);
+      mma_16816(acc[2 * dn + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+// a warp's 16 x W accumulator as bf16 columns col0.. of rows row0 + g
+// (times scale_lo) and row0 + g + 8 (times scale_hi) of a (T, D) matrix
+template <int W>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[W / 8][4], int row0,
+                                           int col0, int T, float scale_lo, float scale_hi) {
+  const int lane = threadIdx.x & 31, r_lo = row0 + (lane >> 2), r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int col = col0 + j * 8 + (lane & 3) * 2;
+    if (r_lo < T)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r_lo * D + col) =
+          pack_bf16(acc[j][0] * scale_lo, acc[j][1] * scale_lo);
+    if (r_hi < T)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r_hi * D + col) =
+          pack_bf16(acc[j][2] * scale_hi, acc[j][3] * scale_hi);
+  }
+}
+
+// Forward: block (64 queries, bh); online softmax per row over 32-key tiles.
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           bf16* __restrict__ o, float* __restrict__ lse, int T) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = reinterpret_cast<bf16*>(smem + 2 * kOwn);
+  bf16* vs = reinterpret_cast<bf16*>(smem + 2 * kOwn + kStream);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tig = lane & 3;
+  const int q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)blockIdx.y * T * D;
+  load_tile<kRows>(qs, q + base, q0, T);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
+  for (int k0 = 0; k0 < T; k0 += kN) {
+    __syncthreads();  // the last tile's readers are done (and qs is loaded)
+    load_tile<kN>(ks, k + base, k0, T);
+    load_tile<kN>(vs, v + base, k0, T);
+    __syncthreads();
+    float s[kN / 8][4];
+    rows_dot_rows<kN>(s, qs, warp * 16, ks);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + j * 8 + tig * 2 + (e & 1) >= T) s[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);  // 0 on the first tile
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f((s[j][e] - m[e >> 1]) * kLog2e);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    probs_dot_tile<kN, D>(acc, s, vs, 0);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row0 = q0 + warp * 16;
+  store_rows<D>(o + base, acc, row0, 0, T, 1.f / l[0], 1.f / l[1]);
+  if (tig == 0) {
+    const int g = lane >> 2;
+    if (row0 + g < T) lse[(size_t)blockIdx.y * T + row0 + g] = m[0] + logf(l[0]);
+    if (row0 + g + 8 < T) lse[(size_t)blockIdx.y * T + row0 + g + 8] = m[1] + logf(l[1]);
+  }
+}
+
+// dq: block (64 queries, bh); Q and dO resident, 32-key tiles streamed.
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ di,
+              bf16* __restrict__ dq, int T) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = reinterpret_cast<bf16*>(smem + kOwn);
+  bf16* ks = reinterpret_cast<bf16*>(smem + 2 * kOwn);
+  bf16* vs = reinterpret_cast<bf16*>(smem + 2 * kOwn + kStream);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * kRows, row0 = q0 + warp * 16;
+  const size_t base = (size_t)blockIdx.y * T * D;
+  load_tile<kRows>(qs, q + base, q0, T);
+  load_tile<kRows>(dos, dout + base, q0, T);
+  float row_lse[2], row_di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    row_lse[r] = row < T ? lse[(size_t)blockIdx.y * T + row] : 0.f;
+    row_di[r] = row < T ? di[(size_t)blockIdx.y * T + row] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k0 = 0; k0 < T; k0 += kN) {
+    __syncthreads();
+    load_tile<kN>(ks, k + base, k0, T);
+    load_tile<kN>(vs, v + base, k0, T);
+    __syncthreads();
+    float s[kN / 8][4], dp[kN / 8][4];
+    rows_dot_rows<kN>(s, qs, warp * 16, ks);
+    rows_dot_rows<kN>(dp, dos, warp * 16, vs);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = k0 + j * 8 + tig * 2 + (e & 1) < T;
+        const float p = valid ? exp2f((s[j][e] - row_lse[e >> 1]) * kLog2e) : 0.f;
+        s[j][e] = p * (dp[j][e] - row_di[e >> 1]);  // ds
+      }
+    probs_dot_tile<kN, D>(acc, s, ks, 0);
+  }
+  store_rows<D>(dq + base, acc, row0, 0, T, 1.f, 1.f);
+}
+
+// dk, dv: block (64 keys, bh, half of the columns); K and V resident,
+// 32-query tiles streamed with their lse and di.
+__global__ void __launch_bounds__(kThreads)
+bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ di,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int T) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = reinterpret_cast<bf16*>(smem + kOwn);
+  bf16* qs = reinterpret_cast<bf16*>(smem + 2 * kOwn);
+  bf16* dos = reinterpret_cast<bf16*>(smem + 2 * kOwn + kStream);
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * kOwn + 2 * kStream);
+  float* di_s = lse_s + kN;
+  const int warp = threadIdx.x >> 5, tig = threadIdx.x & 3;
+  const int k0 = blockIdx.x * kRows, col0 = blockIdx.z * DH;
+  const size_t base = (size_t)blockIdx.y * T * D;
+  load_tile<kRows>(ks, k + base, k0, T);
+  load_tile<kRows>(vs, v + base, k0, T);
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  for (int q0 = 0; q0 < T; q0 += kN) {
+    __syncthreads();
+    load_tile<kN>(qs, q + base, q0, T);
+    load_tile<kN>(dos, dout + base, q0, T);
+    if (threadIdx.x < kN) {
+      const bool valid = q0 + threadIdx.x < T;
+      lse_s[threadIdx.x] = valid ? lse[(size_t)blockIdx.y * T + q0 + threadIdx.x] : 0.f;
+      di_s[threadIdx.x] = valid ? di[(size_t)blockIdx.y * T + q0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+    // p^T (this warp's 16 keys x 32 queries), then dv += bf16(p^T) do
+    float p[kN / 8][4];
+    rows_dot_rows<kN>(p, ks, warp * 16, qs);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + tig * 2 + (e & 1);
+        p[j][e] = q0 + col < T ? exp2f((p[j][e] - lse_s[col]) * kLog2e) : 0.f;
+      }
+    probs_dot_tile<kN, DH>(dv_acc, p, dos, col0);
+    // ds^T = p^T (v do^T - di), then dk += bf16(ds^T) q
+    float dp[kN / 8][4];
+    rows_dot_rows<kN>(dp, vs, warp * 16, dos);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - di_s[j * 8 + tig * 2 + (e & 1)]);
+    probs_dot_tile<kN, DH>(dk_acc, dp, qs, col0);
+  }
+  const int row0 = k0 + warp * 16;
+  store_rows<DH>(dk + base, dk_acc, row0, col0, T, 1.f, 1.f);
+  store_rows<DH>(dv + base, dv_acc, row0, col0, T, 1.f, 1.f);
+}
+
+dim3 grid(int BH, int T, int split = 1) {
+  return dim3((unsigned)((T + kRows - 1) / kRows), (unsigned)BH, (unsigned)split);
+}
+
+}  // namespace d256
+
 // Shared memory above 48 KB is dynamic only, after this opt-in.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -611,7 +927,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 bool bad_shape(int BH, int T, int D) {
-  return BH <= 0 || BH > 65535 || T <= 0 || (D != 64 && D != 128);
+  return BH <= 0 || BH > 65535 || T <= 0 || (D != 64 && D != 128 && D != 256);
 }
 
 // A 3-D map over a (BH, T, D) bf16 tensor with 64 x 64 boxes and the
@@ -677,11 +993,43 @@ cudaError_t bwd_dkv(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+cudaError_t fwd_d256(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                     float* lse, int BH, int T) {
+  const size_t smem = d256::kSmem + 1024;
+  cudaError_t err = allow_smem(d256::fwd_kernel, smem);
+  if (err != cudaSuccess) return err;
+  d256::fwd_kernel<<<d256::grid(BH, T), d256::kThreads, smem, s>>>(q, k, v, o, lse, T);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dq_d256(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                        const bf16* dout, const float* lse, const float* di, bf16* dq, int BH,
+                        int T) {
+  const size_t smem = d256::kSmem + 1024;
+  cudaError_t err = allow_smem(d256::bwd_dq_kernel, smem);
+  if (err != cudaSuccess) return err;
+  d256::bwd_dq_kernel<<<d256::grid(BH, T), d256::kThreads, smem, s>>>(q, k, v, dout, lse, di,
+                                                                      dq, T);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dkv_d256(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                         const bf16* dout, const float* lse, const float* di, bf16* dk,
+                         bf16* dv, int BH, int T) {
+  const size_t smem = d256::kSmem + 1024;
+  cudaError_t err = allow_smem(d256::bwd_dkv_kernel, smem);
+  if (err != cudaSuccess) return err;
+  d256::bwd_dkv_kernel<<<d256::grid(BH, T, 2), d256::kThreads, smem, s>>>(q, k, v, dout, lse,
+                                                                          di, dk, dv, T);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each launches on `stream` and
 // returns cudaGetLastError() after the launch (0 on success).  All arrays
-// are contiguous: bf16 (BH, T, D), f32 (BH, T); D is 64 or 128; BH <= 65535.
+// are contiguous: bf16 (BH, T, D), f32 (BH, T); D is 64, 128 or 256;
+// BH <= 65535.
 extern "C" int pika_flash_attention_fwd(int device, void* stream, const void* q, const void* k,
                                         const void* v, void* o, float* lse, int BH, int T,
                                         int D) {
@@ -693,6 +1041,7 @@ extern "C" int pika_flash_attention_fwd(int device, void* stream, const void* q,
   auto* kb = static_cast<const bf16*>(k);
   auto* vb = static_cast<const bf16*>(v);
   auto* ob = static_cast<bf16*>(o);
+  if (D == 256) return fwd_d256(s, qb, kb, vb, ob, lse, BH, T);
   return D == 64 ? fwd<64>(s, qb, kb, vb, ob, lse, BH, T) : fwd<128>(s, qb, kb, vb, ob, lse, BH, T);
 }
 
@@ -708,6 +1057,7 @@ extern "C" int pika_flash_attention_bwd_dq(int device, void* stream, const void*
   auto* vb = static_cast<const bf16*>(v);
   auto* db = static_cast<const bf16*>(dout);
   auto* dqb = static_cast<bf16*>(dq);
+  if (D == 256) return bwd_dq_d256(s, qb, kb, vb, db, lse, di, dqb, BH, T);
   return D == 64 ? bwd_dq<64>(s, qb, kb, vb, db, lse, di, dqb, BH, T)
                  : bwd_dq<128>(s, qb, kb, vb, db, lse, di, dqb, BH, T);
 }
@@ -726,6 +1076,7 @@ extern "C" int pika_flash_attention_bwd_dkv(int device, void* stream, const void
   auto* db = static_cast<const bf16*>(dout);
   auto* dkb = static_cast<bf16*>(dk);
   auto* dvb = static_cast<bf16*>(dv);
+  if (D == 256) return bwd_dkv_d256(s, qb, kb, vb, db, lse, di, dkb, dvb, BH, T);
   return D == 64 ? bwd_dkv<64>(s, qb, kb, vb, db, lse, di, dkb, dvb, BH, T)
                  : bwd_dkv<128>(s, qb, kb, vb, db, lse, di, dkb, dvb, BH, T);
 }

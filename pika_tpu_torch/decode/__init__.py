@@ -1,5 +1,5 @@
-"""Decoding: batched greedy and beam search, N-best reranking and WER
-scoring."""
+"""Decoding: batched greedy and beam search with n-gram FST shallow fusion,
+N-best reranking and WER scoring."""
 
 from pika_tpu_torch.decode.beam import (
     BeamConfig,
@@ -7,6 +7,20 @@ from pika_tpu_torch.decode.beam import (
     beam_search_eager,
     beam_search_features,
     beam_search_waveforms,
+)
+from pika_tpu_torch.decode.fst import (
+    FstTables,
+    build_advance_cache,
+    build_final_cache,
+    compile_arpa,
+    fst_advance_min_costs,
+    fst_advance_min_costs_all,
+    fst_advance_sets,
+    fst_final_scores,
+    init_state_sets,
+    read_openfst_binary,
+    read_text_fst,
+    write_openfst_binary,
 )
 from pika_tpu_torch.decode.greedy import (
     greedy_decode,

@@ -1,5 +1,5 @@
-"""Batched RNN-T beam search (port of ``pika_tpu/decode/beam.py``, LSTM
-prediction net, without FST fusion).
+"""Batched RNN-T beam search with n-gram FST shallow fusion (port of
+``pika_tpu/decode/beam.py``, LSTM prediction net).
 
 The JAX search is one ``lax.while_loop`` over fixed-shape (B, K) arrays;
 here it is a ``decode.loop.DecodeLoop`` over (B, K) tensors with the same
@@ -11,14 +11,20 @@ the same body eagerly on the CPU.
 * duplicate partial hypotheses are pruned: rolling hashes (uint32
   arithmetic, carried in int64 and masked to 32 bits) as a prefilter, then
   equal token buffers;
+* optional FST shallow fusion (``decode/fst.py``): each beam carries a
+  fixed-capacity set of LM states with min-cost tracking; the LM biases
+  selection per beam (``lm_per_token=False``, the reference's semantics)
+  or scores each candidate token with its advanced LM score (per-token:
+  top-m candidates, or every token through the dense advance cache at
+  ``lm_topm=0``); finished scores add the FST final weights;
 * finished hypotheses (blank at the last frame) move into a top-N finished
   store and never occupy live beam slots; live beams backfill it at the end;
 * softmax temperature ``sm_scale``.
 
-Every top-k (the K-of-(K*V) selection and the finished-store merges) is a
-stable descending sort: ``jax.lax.top_k`` puts the lower index first among
-equal values, and ties are common (every dead beam sits at NEG, where
-NEG + lp == NEG in float32).
+Every top-k (the K-of-(K*V) and K-of-(K*(m+1)) selections, the FST state
+sets' and the finished-store merges) is a stable descending sort:
+``jax.lax.top_k`` puts the lower index first among equal values, and ties
+are common (every dead beam sits at NEG, where NEG + lp == NEG in float32).
 """
 
 from __future__ import annotations
@@ -28,7 +34,15 @@ from typing import Optional
 
 import torch
 
+from pika_tpu_torch.decode.fst import (
+    INF,
+    fst_advance_min_costs,
+    fst_advance_min_costs_all,
+    fst_advance_sets,
+    fst_final_scores,
+)
 from pika_tpu_torch.decode.loop import STEPS_PER_CHECK, DecodeLoop, cached_loop
+from pika_tpu_torch.decode.topk import top_k
 from pika_tpu_torch.models.transducer import Transducer
 from pika_tpu_torch.utils.dtypes import resolve_mm_dtype
 
@@ -40,12 +54,16 @@ HASH_MASK = 0xFFFFFFFF
 @dataclasses.dataclass(frozen=True)
 class BeamConfig:
     """Every field of ``pika_tpu.decode.beam.BeamConfig``.  The FST fusion
-    fields (``lm_scale``, ``nonblk_reward``, ``max_fst_states``,
-    ``fst_backoff_levels``, ``lm_per_token``, ``lm_topm``) act only with
-    FST tables, which the port does not take yet: ``beam_search`` raises on
-    a non-default ``lm_scale``, ``nonblk_reward`` or ``lm_per_token``.
-    ``mm_dtype`` is the loop's matmul dtype (``utils.dtypes``; None is
-    float32); scores, ``log_softmax`` and the bookkeeping stay float32."""
+    fields act with FST tables (``beam_search(fst_tables=...)``):
+    ``lm_scale`` weighs the LM, ``nonblk_reward`` is added to the LM score
+    of every emission, ``max_fst_states`` is a beam's state-set capacity,
+    ``fst_backoff_levels`` bounds the backoff walks; ``lm_per_token=False``
+    is the reference's per-beam selection bias, True scores each candidate
+    token with its advanced LM score: the top ``lm_topm`` non-blank tokens
+    of each beam, or every token when ``lm_topm=0`` (needs the tables'
+    dense advance cache).  ``mm_dtype`` is the loop's matmul dtype
+    (``utils.dtypes``; None is float32); scores, ``log_softmax`` and the
+    bookkeeping stay float32."""
 
     beam_size: int = 8
     n_best: int = 1
@@ -60,13 +78,6 @@ class BeamConfig:
     lm_per_token: bool = False
     lm_topm: int = 8
     mm_dtype: Optional[str] = None
-
-
-def top_k(x: torch.Tensor, k: int):
-    """``jax.lax.top_k`` over the last axis: the k largest values, sorted,
-    the lower index first among equal values."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
 
 
 def _dup_mask(hashes, lens, tokens):
@@ -91,9 +102,16 @@ def _gather_beams(x, idx):
     return x.gather(1, idx)
 
 
+def _min0(x: torch.Tensor) -> torch.Tensor:
+    """min(min(x), 0) as a 0-d float32 tensor, 0 for an empty x."""
+    if x.numel() == 0:
+        return torch.zeros((), device=x.device)
+    return torch.clamp(x.min(), max=0.0)
+
+
 class BeamLoop(DecodeLoop):
     def __init__(self, net: Transducer, cfg: BeamConfig, b: int, t_max: int,
-                 device: torch.device):
+                 device: torch.device, fst_tables: Optional[dict] = None, fst_start: int = 0):
         super().__init__()
         mcfg = net.config
         dtype = net.fc2.weight.dtype
@@ -130,6 +148,42 @@ class BeamLoop(DecodeLoop):
             "fin_aligns": torch.zeros(b, n, self.max_steps, **longs),
             "fin_align_lens": torch.zeros(b, n, **longs),
         }
+        # FST fusion: the tables are inputs the graph reads in place
+        self.fst, self.fst_start = fst_tables, fst_start
+        self.use_lm = fst_tables is not None
+        self.per_token = self.use_lm and cfg.lm_per_token
+        self.has_cache = self.use_lm and "adv_cost" in fst_tables
+        if self.per_token and cfg.lm_topm <= 0 and not self.has_cache:
+            raise ValueError(
+                "lm_topm=0 (exact per-token fusion) needs the dense advance cache: build "
+                "fst_tables with device_arrays(n_ilabels=..., cache_max_bytes>0) or set "
+                "lm_topm > 0")
+        if self.use_lm:
+            s_cap = cfg.max_fst_states
+            self.state["lm_scores"] = torch.zeros(b, k, device=device)
+            self.state["fst_states"] = torch.zeros(b, k, s_cap, **longs)
+            self.state["fst_costs"] = torch.zeros(b, k, s_cap, device=device)
+        if self.use_lm and cfg.lm_scale > 0:
+            self.gain_per_emit, self.final_gain = self._stop_bound_gains()
+
+    def _stop_bound_gains(self):
+        """The admissible stop bound's two terms, as float32 device scalars
+        made once per table set, outside the loop body.  A live beam's
+        eventual finished total can exceed its model-only score wherever an
+        emission can lower the LM cost (``nonblk_reward > 0``, or negative
+        arc, backoff or final weights): each remaining emission slot is
+        credited with the largest possible gain per emission, and the end
+        with the largest possible final-weight gain.  With non-negative
+        weights and no reward both are 0."""
+        fst, cfg = self.fst, self.cfg
+        dw, fw = fst["disambig_weight"], fst["final_weight"]
+        min_bw = _min0(fst["backoff_weight"])
+        gain_per_emit = cfg.nonblk_reward - (
+            _min0(fst["arc_weight"]) + cfg.fst_backoff_levels * min_bw
+            + _min0(torch.where(dw < 1e29, dw, 0.0)))
+        final_gain = torch.clamp(
+            -(_min0(torch.where(fw < 1e29, fw, 0.0)) + cfg.fst_backoff_levels * min_bw), min=0.0)
+        return gain_per_emit, final_gain
 
     def reset(self, enc_out, enc_lens) -> None:
         net, st, cfg = self.net, self.state, self.cfg
@@ -157,17 +211,33 @@ class BeamLoop(DecodeLoop):
         for name in ("step", "t_idx", "lens", "align_lens", "hashes", "fin_lens",
                      "fin_align_lens"):
             st[name].zero_()
+        if self.use_lm:  # every beam's state set is {start: 0}
+            st["lm_scores"].zero_()
+            st["fst_states"].fill_(-1)
+            st["fst_states"][..., 0] = self.fst_start
+            st["fst_costs"].fill_(float(INF))
+            st["fst_costs"][..., 0] = 0.0
 
     def body(self) -> None:
-        st, net, cfg = self.state, self.net, self.cfg
+        st, net, cfg, fst = self.state, self.net, self.cfg, self.fst
         ax_all, gx_all, enc_lens = (self.inputs[x] for x in ("ax_all", "gx_all", "enc_lens"))
         layers, b, k, h = st["dec_h"].shape
         t_max = ax_all.shape[1]
         n, um, blank = cfg.n_best, cfg.max_symbols, cfg.blank
         vocab = net.config.vocab_size
+        use_lm, per_token, has_cache = self.use_lm, self.per_token, self.has_cache
+        use_bias = use_lm and not cfg.lm_per_token
+        reward, levels, lm_scale = cfg.nonblk_reward, cfg.fst_backoff_levels, cfg.lm_scale
 
-        # cond: some live beam still beats the worst kept finished one
-        undecided = st["scores"].max(dim=1).values > st["fin_scores"][:, n - 1]
+        # cond: some live beam still beats the worst kept finished one (with
+        # the LM, under the admissible bound on its future LM gain)
+        if use_lm and lm_scale > 0:
+            slack = self.gain_per_emit * (um - st["lens"]).clamp(min=0)
+            live_best = (st["scores"] + lm_scale * (st["lm_scores"] + slack + self.final_gain)
+                         ).amax(dim=1)
+        else:
+            live_best = st["scores"].amax(dim=1)
+        undecided = live_best > st["fin_scores"][:, n - 1]
         st["running"].logical_and_((st["step"] < self.max_steps) & undecided.any())
 
         # --- duplicate-prefix pruning (beam order is score-descending) ---
@@ -182,7 +252,14 @@ class BeamLoop(DecodeLoop):
             gx_all.gather(1, t_gather).reshape(b * k, h),
             st["dec_ay"].reshape(b * k, h), st["dec_gy"].reshape(b * k, h))
         lp = torch.log_softmax(cfg.sm_scale * logits.float(), dim=-1).reshape(b, k, vocab)
-        cand = scores[..., None] + lp
+        if use_bias:
+            # a beam whose LM state set died (only with no-backoff FSTs) can
+            # never finish: kill it here, or lm_scale * NEG rides through the
+            # bias and the float32 subtract-back cancels it to exactly 0
+            scores = torch.where(st["lm_scores"] <= NEG / 2, NEG, scores)
+            cand = scores[..., None] + lp + (lm_scale * st["lm_scores"])[..., None]
+        else:
+            cand = scores[..., None] + lp
 
         # full beams may only take blank
         full = st["lens"] >= um
@@ -190,8 +267,11 @@ class BeamLoop(DecodeLoop):
 
         # --- finished extraction: blank at the last frame ----------------
         at_last = st["t_idx"] >= (enc_lens[:, None] - 1)
-        finish_now = at_last & (scores > NEG / 2)
-        fin_cand = torch.where(finish_now, scores + lp[..., blank], NEG)
+        fin_cand = scores + lp[..., blank]
+        if use_lm:
+            fin_lm = fst_final_scores(fst, st["fst_states"], st["fst_costs"], levels)
+            fin_cand = fin_cand + lm_scale * fin_lm
+        fin_cand = torch.where(at_last & (scores > NEG / 2), fin_cand, NEG)
         top_fin, fin_idx = top_k(torch.cat([st["fin_scores"], fin_cand], dim=1), n)
 
         def merged(fin, live):
@@ -201,9 +281,60 @@ class BeamLoop(DecodeLoop):
         cand = torch.where(at_last[..., None] & ~self.non_blank, NEG, cand)
 
         # --- top-k continuation ------------------------------------------
-        top_val, top_idx = top_k(cand.reshape(b, k * vocab), k)
-        prev_k = top_idx // vocab
-        tok = top_idx % vocab
+        if per_token and cfg.lm_topm <= 0:
+            # exact per-token fusion: every (beam, token) candidate scored
+            # with its advanced LM score (token v emits FST ilabel v + 1;
+            # tokens past the table are dead); the blank candidate carries
+            # the prefix LM score through; the winners' sets advance below
+            lm_tok = fst_advance_min_costs_all(fst, st["fst_states"], st["fst_costs"], reward)
+            vt = lm_tok.shape[-1]
+            if vt < vocab + 1:
+                lm_tok = torch.cat([lm_tok, lm_tok.new_full(lm_tok.shape[:-1] + (vocab + 1 - vt,),
+                                                            -float(INF))], -1)
+            lm_grid = lm_tok[..., 1:vocab + 1].clamp(min=NEG)
+            lm_grid = torch.where(self.non_blank, lm_grid, st["lm_scores"][..., None])
+            _, top_idx = top_k((cand + lm_scale * lm_grid).reshape(b, k * vocab), k)
+            prev_k, tok = top_idx // vocab, top_idx % vocab
+            new_scores = cand.reshape(b, k * vocab).gather(1, top_idx)
+            sel_lm = lm_grid.reshape(b, k * vocab).gather(1, top_idx)
+        elif per_token:
+            # blank and the top-m non-blank candidates of each beam, each
+            # scored with its advanced LM score
+            m = min(cfg.lm_topm, vocab - 1)
+            nb_val, nb_tok = top_k(torch.where(self.non_blank, cand, NEG), m)
+            s_cap = cfg.max_fst_states
+            bs = st["fst_states"][:, :, None].expand(b, k, m, s_cap)
+            bc = st["fst_costs"][:, :, None].expand(b, k, m, s_cap)
+            if has_cache:
+                # selection needs only each candidate's best advanced cost;
+                # the k winners' sets advance after selection
+                adv_lm = fst_advance_min_costs(fst, bs, bc, nb_tok + 1, reward)
+            else:
+                adv_states, adv_costs, adv_lm = fst_advance_sets(fst, bs, bc, nb_tok + 1, levels,
+                                                                 reward)
+            adv_lm = adv_lm.clamp(min=NEG)
+            mc = m + 1  # candidate 0 is blank: the prefix LM set unchanged
+            vals = torch.cat([cand[..., blank][..., None], nb_val], -1)
+            lm_all = torch.cat([st["lm_scores"][..., None], adv_lm], -1)
+            toks = torch.cat([torch.full_like(nb_tok[..., :1], blank), nb_tok], -1)
+            _, top_idx = top_k((vals + lm_scale * lm_all).reshape(b, k * mc), k)
+            prev_k = top_idx // mc
+            tok = toks.reshape(b, k * mc).gather(1, top_idx)
+            new_scores = vals.reshape(b, k * mc).gather(1, top_idx)
+            sel_lm = lm_all.reshape(b, k * mc).gather(1, top_idx)
+            if not has_cache:
+                idx = top_idx[..., None].expand(b, k, s_cap)
+                sel_states = torch.cat([st["fst_states"][:, :, None], adv_states], 2).reshape(
+                    b, k * mc, s_cap).gather(1, idx)
+                sel_costs = torch.cat([st["fst_costs"][:, :, None], adv_costs], 2).reshape(
+                    b, k * mc, s_cap).gather(1, idx)
+        else:
+            new_scores, top_idx = top_k(cand.reshape(b, k * vocab), k)
+            prev_k, tok = top_idx // vocab, top_idx % vocab
+        if per_token:
+            # a candidate whose LM state set died cannot continue in-grammar
+            # or ever finish: kill it instead of decoding on LM-free
+            new_scores = torch.where(sel_lm <= NEG / 2, NEG, new_scores)
         tokens, lens, aligns, align_lens, hashes, t_idx, dec_ay, dec_gy = (
             _gather_beams(st[x], prev_k) for x in ("tokens", "lens", "aligns", "align_lens",
                                                    "hashes", "t_idx", "dec_ay", "dec_gy"))
@@ -225,9 +356,9 @@ class BeamLoop(DecodeLoop):
             tok.reshape(b * k), (dec_h.reshape(layers, b * k, h), dec_c.reshape(layers, b * k, h)))
         new_ay, new_gy = net.joint_dec_factors(new_hid)
         keep = emit[..., None]
-        self.commit({
+        new = {
             "step": st["step"] + 1,
-            "scores": top_val,
+            "scores": new_scores,
             "t_idx": torch.where(emit, t_idx, t_idx + 1),
             "tokens": tokens,
             "lens": lens + emit.long(),
@@ -243,13 +374,39 @@ class BeamLoop(DecodeLoop):
             "fin_lens": merged("fin_lens", "lens"),
             "fin_aligns": merged("fin_aligns", "aligns"),
             "fin_align_lens": merged("fin_align_lens", "align_lens"),
-        })
+        }
+        if use_lm:
+            lm_prev = _gather_beams(st["lm_scores"], prev_k)
+            if use_bias:
+                new["scores"] = new_scores - lm_scale * lm_prev
+            if per_token and not has_cache:
+                # the walk advanced the candidates' sets before selection;
+                # candidate 0 (blank) carried the prefix set through
+                new.update(fst_states=sel_states, fst_costs=sel_costs, lm_scores=sel_lm)
+            else:
+                # per-beam, and per-token with the cache: the k winners' sets
+                # advance now, when the reference advances them (per-token,
+                # the lm equals the selection's sel_lm bit for bit)
+                fst_states = _gather_beams(st["fst_states"], prev_k)
+                fst_costs = _gather_beams(st["fst_costs"], prev_k)
+                adv_states, adv_costs, adv_lm = fst_advance_sets(fst, fst_states, fst_costs,
+                                                                 tok + 1, levels, reward)
+                new.update(fst_states=torch.where(keep, adv_states, fst_states),
+                           fst_costs=torch.where(keep, adv_costs, fst_costs),
+                           lm_scores=torch.where(emit, adv_lm.clamp(min=NEG), lm_prev))
+        self.commit(new)
 
     def result(self) -> dict:
-        """The N-best: finished hypotheses and live beams (force-finished)
-        ranked together, as the JAX search's backfill."""
-        st = self.state
-        top, idx = top_k(torch.cat([st["fin_scores"], st["scores"]], dim=1), self.cfg.n_best)
+        """The N-best: finished hypotheses and live beams (force-finished,
+        with their FST final scores) ranked together, as the JAX search's
+        backfill."""
+        st, cfg = self.state, self.cfg
+        live = st["scores"]
+        if self.use_lm:
+            fin_lm = fst_final_scores(self.fst, st["fst_states"], st["fst_costs"],
+                                      cfg.fst_backoff_levels)
+            live = live + cfg.lm_scale * fin_lm.clamp(min=NEG)
+        top, idx = top_k(torch.cat([st["fin_scores"], live], dim=1), cfg.n_best)
         out = {name: _gather_beams(torch.cat([st["fin_" + name], st[name]], dim=1), idx)
                .to(torch.int32) for name in ("tokens", "lens", "aligns", "align_lens")}
         out["scores"] = top
@@ -257,19 +414,22 @@ class BeamLoop(DecodeLoop):
         return out
 
 
-def _check_config(cfg: BeamConfig, fst_tables) -> None:
-    if fst_tables is not None or cfg.lm_scale > 0 or cfg.nonblk_reward != 0 or cfg.lm_per_token:
-        raise NotImplementedError(
-            "FST shallow fusion (fst_tables, lm_scale > 0, nonblk_reward, lm_per_token) is "
-            "not ported yet: ROADMAP Queue 1 item 4")
-
-
-def _search(model, enc_out, enc_lens, cfg, steps_per_check, graphed):
+def _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check, graphed):
     b, t_max, _ = enc_out.shape
     dev = enc_out.device
     dtype = resolve_mm_dtype(cfg.mm_dtype, dev)
-    loop = cached_loop(model, ("beam", str(dev), b, t_max, cfg), dtype,
-                       lambda net: BeamLoop(net, cfg, b, t_max, dev))
+    fst_key = None
+    if fst_tables is not None:
+        fst_key = getattr(fst_tables, "key", None)
+        if fst_key is None:
+            raise TypeError("fst_tables must come from FstTables.device_arrays (its key names "
+                            "the LM a captured decode graph reads)")
+        if fst_tables["arc_start"].device != dev:
+            raise ValueError(f"fst_tables are on {fst_tables['arc_start'].device}, the encoder "
+                             f"output on {dev}")
+    key = ("beam", str(dev), b, t_max, cfg, fst_key, fst_start if fst_key else None)
+    loop = cached_loop(model, key, dtype,
+                       lambda net: BeamLoop(net, cfg, b, t_max, dev, fst_tables, fst_start))
     loop.run(graphed, steps_per_check, enc_out, enc_lens)
     return loop.result()
 
@@ -279,26 +439,31 @@ def beam_search(model: Transducer, enc_out: torch.Tensor, enc_lens: torch.Tensor
                 cfg: BeamConfig, fst_tables: Optional[dict] = None, fst_start: int = 0,
                 steps_per_check: int = STEPS_PER_CHECK) -> dict:
     """Decode a batch of encoder outputs (B, T, H): one CUDA graph of the
-    loop's body on the card (captured once per shape and config), the same
-    body eagerly on the CPU.
+    loop's body on the card (captured once per shape, config and LM), the
+    same body eagerly on the CPU.
+
+    ``fst_tables`` (``FstTables.device_arrays`` on the encoder output's
+    device) and ``fst_start`` (``FstTables.start``) turn on FST shallow
+    fusion.  The loop for an LM is kept on the model with the tables' tensors
+    (the graph reads them in place), keyed by their content fingerprint.
 
     Returns dict(tokens (B, N, Um), lens (B, N), scores (B, N), aligns
     (B, N, T+Um), align_lens (B, N), steps) sorted best-first; padding token
     is -1.  ``aligns`` is the full emission sequence including blanks;
-    ``steps`` is the number of loop steps the search took.  FST fusion
-    (``fst_tables``) raises until it is ported.
+    ``steps`` is the number of loop steps the search took.
     """
-    _check_config(cfg, fst_tables)
-    return _search(model, enc_out, enc_lens, cfg, steps_per_check, graphed=enc_out.is_cuda)
+    return _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check,
+                   graphed=enc_out.is_cuda)
 
 
 @torch.no_grad()
 def beam_search_eager(model: Transducer, enc_out: torch.Tensor, enc_lens: torch.Tensor,
-                      cfg: BeamConfig, steps_per_check: int = STEPS_PER_CHECK) -> dict:
+                      cfg: BeamConfig, fst_tables: Optional[dict] = None, fst_start: int = 0,
+                      steps_per_check: int = STEPS_PER_CHECK) -> dict:
     """``beam_search`` with the body run eagerly on any device: the
     reference the card's checks hold the graph to."""
-    _check_config(cfg, None)
-    return _search(model, enc_out, enc_lens, cfg, steps_per_check, graphed=False)
+    return _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check,
+                   graphed=False)
 
 
 @torch.no_grad()

@@ -4,9 +4,9 @@ plain PyTorch version.
 ``flash_attention(q, k, v)`` computes ``softmax(q k^T) v`` per (batch, head)
 for bf16 q, k, v of shape (B, heads, T, d) -- q already scaled by 1/sqrt(d),
 no mask, keys and queries of one length -- and returns bf16, with autograd.
-The kernels are built for d = 64 and 128; any other d up to 128 runs
+The kernels are built for d = 64, 128 and 256; any other d up to 256 runs
 zero-padded to the next of them (``pad_head``, exact), as the library
-kernel takes any d below 128.
+kernel takes any d; above 256 the wrappers raise.
 It replaces the library Pallas TPU kernels that
 ``pika_tpu/models/transformer.py:MultiHeadedAttention._flash`` reaches
 (``jax/experimental/pallas/ops/tpu/flash_attention.py``, jax 0.9.0): the
@@ -32,8 +32,12 @@ Hopper kernels: a TMA producer warp streams key or query tiles through a
 and ds as the register operand of the value and gradient products; the
 forward keeps the online softmax in registers and its blocks are
 persistent, one per SM, so one work item's loads overlap the last one's
-tail.  di = sum(o * do) is taken with torch, once per backward
-(``flash_attention_di``), and handed to both backward kernels.
+tail.  At d = 256 the three are simpler ``mma.sync`` kernels instead
+(64-row blocks of 4 warps over 32-row streamed tiles, the dk/dv kernel's
+columns split over two blocks; a 64 x 256 accumulator per warpgroup does
+not fit the registers).  di = sum(o * do) is taken with
+torch, once per backward (``flash_attention_di``), and handed to both
+backward kernels.
 
 The plain versions materialize the (B, h, T, T) scores; they round p to
 bf16 relative to the row's max, the kernel relative to the running max of
@@ -51,7 +55,7 @@ import torch.nn.functional as F
 
 from pika_tpu_torch.ops import cuda_build
 
-HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (64, 128, 256)  # the head widths the kernels are built for
 
 
 def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
@@ -92,9 +96,8 @@ def _check_cuda(what, **tensors):
         raise ValueError(f"{what}: unsupported device {device}")
     if len(shape) != 4 or shape[3] not in HEAD_DIMS or shape[2] == 0:
         raise ValueError(f"{what}: q must be (B, heads, T > 0, d) with d in {HEAD_DIMS} "
-                         f"(flash_attention zero-pads any d up to {HEAD_DIMS[-1]}; no "
-                         f"configuration of the repo has d_head > {HEAD_DIMS[-1]}), "
-                         f"got {tuple(shape)}")
+                         f"(flash_attention zero-pads any d up to {HEAD_DIMS[-1]}; K4 has no "
+                         f"kernel for d_head > {HEAD_DIMS[-1]}), got {tuple(shape)}")
     for name, x in tensors.items():
         if x.dtype != torch.bfloat16 or x.shape != shape or x.device != device:
             raise ValueError(f"{what}: {name} must be bfloat16 {tuple(shape)} on "
@@ -222,8 +225,9 @@ def pad_head(attention, q, k, v):
 def flash_attention(q, k, v):
     """bf16 ``softmax(q k^T) v`` over (B, heads, T, d) q, k, v (q scaled by
     1/sqrt(d) already), differentiable.  CUDA inputs must be contiguous with
-    d <= ``HEAD_DIMS[-1]``; a d between the kernels' widths runs zero-padded
-    (``pad_head``).  CPU inputs take the plain versions at any d."""
+    d <= ``HEAD_DIMS[-1]`` (256); a d between the kernels' widths runs
+    zero-padded (``pad_head``).  CPU inputs take the plain versions at any
+    d."""
     d = q.shape[-1]
     if q.device.type == "cuda" and d not in HEAD_DIMS and 0 < d < HEAD_DIMS[-1]:
         return pad_head(FlashAttention.apply, q, k, v)

@@ -1,12 +1,15 @@
 """Batch decoding CLI (port of ``pika_tpu/train/eval_transducer.py``,
-without FST fusion and LAS rescoring).
+without LAS rescoring).
 
 Reads a model bundle (``train/bundle.py``), decodes a wav.scp with features
-computed on the device, writes the N-best hypotheses in the reference's
-format, then reranks and, given references, scores the WER:
+computed on the device, optionally with n-gram FST shallow fusion
+(``--fst_lm``: an ARPA LM, a binary OpenFst or an AT&T text FST), writes the
+N-best hypotheses in the reference's format, then reranks and, given
+references, scores the WER:
 
     python -m pika_tpu_torch.train.eval_transducer BUNDLE wav.scp nbest.txt \\
-        --ref_labels ark:label.txt --beam_size 8 --n_best 8
+        --ref_labels ark:label.txt --beam_size 8 --n_best 8 \\
+        --fst_lm lm.arpa --symbols_map units.txt --fst_lm_scale 0.5
 
 The decode runs on the card unless ``--device cpu``.  Batches are padded
 to ``--batch_size`` rows of ``--max_wav_seconds``, so one shape (one CUDA
@@ -28,6 +31,7 @@ from pika_tpu_torch.data import segment as seg
 from pika_tpu_torch.data.scp import read_int_vectors, read_symbol_table, read_wav_scp
 from pika_tpu_torch.data.wavio import read_wav
 from pika_tpu_torch.decode.beam import BeamConfig, beam_search_waveforms
+from pika_tpu_torch.decode.fst import compile_arpa, read_openfst_binary, read_text_fst
 from pika_tpu_torch.decode.rescore import rerank_nbest
 from pika_tpu_torch.decode.wer import score_wer
 from pika_tpu_torch.device import resolve_device
@@ -57,18 +61,34 @@ def build_parser():
     parser.add_argument("--sm_scale", type=float, default=1.0)
     parser.add_argument("--max_symbols", type=int, default=220)
     parser.add_argument("--fst_lm", type=str, default="",
-                        help="n-gram FST shallow fusion: not ported yet")
+                        help="n-gram FST shallow fusion: a binary OpenFst, a text FST, or an "
+                             ".arpa LM (with --symbols_map)")
     parser.add_argument("--backoff_id", type=int, default=0)
-    parser.add_argument("--disambig_ids", type=str, default="")
+    parser.add_argument("--disambig_ids", type=str, default="",
+                        help="comma separated disambig label ids")
     parser.add_argument("--fst_lm_scale", type=float, default=1.0)
     parser.add_argument("--nonblk_reward", type=float, default=0.0)
     parser.add_argument("--max_fst_states", type=int, default=4)
     parser.add_argument("--fst_fusion", type=str, default="per_token",
-                        choices=["per_token", "per_beam"])
-    parser.add_argument("--fst_per_token", action="store_true")
-    parser.add_argument("--fst_topm", type=int, default=0)
-    parser.add_argument("--fst_cache_mb", type=int, default=512)
-    parser.add_argument("--fst_cache_file", type=str, default="")
+                        choices=["per_token", "per_beam"],
+                        help="per_token (default) scores each candidate token with its "
+                             "advanced LM score; per_beam is the reference's prefix-LM bias "
+                             "with the winners' state sets advanced after selection")
+    parser.add_argument("--fst_per_token", action="store_true",
+                        help="alias for --fst_fusion per_token")
+    parser.add_argument("--fst_topm", type=int, default=0,
+                        help="non-blank candidates per beam scored with their advanced LM "
+                             "score in per-token fusion; 0 (default) scores every token "
+                             "through the dense advance cache, and falls back to 8 when no "
+                             "cache fits (--fst_cache_mb 0 or an LM too big)")
+    parser.add_argument("--fst_cache_mb", type=int, default=512,
+                        help="budget (MB) of the host-built dense advance cache (n_states x "
+                             "vocab x Lm) that turns the per-step backoff walks into one "
+                             "gather; 0 disables it")
+    parser.add_argument("--fst_cache_file", type=str, default="",
+                        help="keep the advance cache on disk across runs ('auto' = "
+                             "<fst_lm>.advcache.npz), keyed by a content fingerprint of the "
+                             "compiled tables; the JAX CLI reads the same file")
     parser.add_argument("--las_rescorer_model", type=str, default=None,
                         help="LAS rescoring: not ported yet")
     parser.add_argument("--las_rescorer_bw_model", type=str, default=None)
@@ -95,7 +115,6 @@ def _check_ported(args) -> None:
     """The flags whose paths are not ported raise, naming their ROADMAP
     item, instead of being ignored."""
     unported = [
-        (bool(args.fst_lm), "--fst_lm (FST shallow fusion): ROADMAP Queue 1 item 4"),
         (bool(args.las_rescorer_model or args.las_rescorer_bw_model or args.las_scale_sweep),
          "--las_rescorer_model, --las_rescorer_bw_model and --las_scale_sweep (LAS "
          "rescoring): ROADMAP Queue 1 item 6"),
@@ -105,6 +124,40 @@ def _check_ported(args) -> None:
     for hit, what in unported:
         if hit:
             raise NotImplementedError(f"not ported yet: {what}")
+
+
+def load_fst(args, vocab_size: int, device: torch.device):
+    """``(fst_tables, fst_start)`` of ``--fst_lm`` on ``device``, or
+    ``(None, 0)`` without one: an ``.arpa`` LM compiled over
+    ``--symbols_map`` (token ids shifted by one), else a binary OpenFst,
+    else an AT&T text FST; with the advance cache when it fits
+    ``--fst_cache_mb`` (read from or written to ``--fst_cache_file``)."""
+    if not args.fst_lm:
+        return None, 0
+    disambig = [int(x) for x in args.disambig_ids.split(",") if x]
+    if args.fst_lm.endswith(".arpa"):
+        if not args.symbols_map:
+            sys.exit("--fst_lm with an ARPA file requires --symbols_map (token symbol table) "
+                     "to map LM words to ids")
+        sym = read_symbol_table(args.symbols_map)
+        tables = compile_arpa(args.fst_lm, {s: i + 1 for i, s in sym.items()},
+                              backoff_id=args.backoff_id)
+    else:
+        try:
+            tables = read_openfst_binary(args.fst_lm, args.backoff_id, disambig)
+        except ValueError:
+            tables = read_text_fst(args.fst_lm, args.backoff_id, disambig)
+    cache_file = args.fst_cache_file
+    if cache_file == "auto":
+        cache_file = args.fst_lm + ".advcache.npz"
+    fst_tables = tables.device_arrays(device, n_ilabels=vocab_size + 1,
+                                      cache_max_bytes=args.fst_cache_mb << 20,
+                                      cache_file=cache_file or None)
+    if "adv_cost" in fst_tables:
+        adv = fst_tables["adv_cost"]
+        print(f"FST advance cache: {tables.n_states} states x {adv.shape[1]} ilabels x "
+              f"Lm={adv.shape[2]} ({adv.nbytes * 2 >> 20} MB)", file=sys.stderr)
+    return fst_tables, tables.start
 
 
 def _chunk_stream(uttids, make_chunk, bsz):
@@ -142,10 +195,19 @@ def main(argv=None):
     args.max_freq_span = args.max_time_span = 0
     featurizer, _, max_samples = common.featurizer_from_args(args, spec_augment=False,
                                                              device=device)
+    fst_tables, fst_start = load_fst(args, model.config.vocab_size, device)
+    lm_topm = args.fst_topm
+    if fst_tables is not None and lm_topm <= 0 and "adv_cost" not in fst_tables:
+        print("per-token fusion: exact selection (--fst_topm 0) needs the dense advance "
+              "cache, unavailable here (--fst_cache_mb 0 or LM too big) — falling back to "
+              "the top-8 candidate walk", file=sys.stderr)
+        lm_topm = 8
     cfg = BeamConfig(beam_size=args.beam_size, n_best=args.n_best, blank=args.blk,
                      sm_scale=args.sm_scale, max_symbols=args.max_symbols,
+                     lm_scale=args.fst_lm_scale if fst_tables is not None else 0.0,
                      nonblk_reward=args.nonblk_reward, max_fst_states=args.max_fst_states,
-                     lm_topm=args.fst_topm, mm_dtype=args.decode_dtype)
+                     lm_per_token=args.fst_per_token or args.fst_fusion == "per_token",
+                     lm_topm=lm_topm, mm_dtype=args.decode_dtype)
 
     sym_map = read_symbol_table(args.symbols_map) if args.symbols_map else None
     bsz = args.batch_size
@@ -182,7 +244,8 @@ def main(argv=None):
             total_audio += audio
             n_utts += len(chunk)
             out = beam_search_waveforms(model, featurizer, torch.from_numpy(wavs).to(device),
-                                        torch.from_numpy(lens).to(device), cfg)
+                                        torch.from_numpy(lens).to(device), cfg, fst_tables,
+                                        fst_start)
             host = {k: out[k].cpu().numpy() for k in ("tokens", "lens", "scores")}
             best_idx, _ = rerank_nbest(host["scores"], host["lens"], rnnt_scale=args.rnnt_score_scale)
             for i, uttid in enumerate(chunk):

@@ -2,8 +2,10 @@
 package on the CPU: the same weights (JAX ``init_transducer`` through
 ``load_flax_variables``) and the same numpy encoder output through both
 searches.  At float32 tokens, lengths and alignments are identical, scores
-within rtol 1e-5; at bf16 the top-1 hypotheses are identical."""
+within rtol 1e-5; at bf16 the top-1 hypotheses are identical.  With FST
+shallow fusion both take one LM through their own ``_build_tables``."""
 
+import dataclasses
 import functools
 import inspect
 import itertools
@@ -17,6 +19,7 @@ import torch
 import pika_tpu.models.transformer as transformer_jax
 from pika_tpu.decode.beam import BeamConfig as BeamConfigJax, _dup_mask as dup_mask_jax
 from pika_tpu.decode.beam import beam_search as beam_search_jax
+from pika_tpu.decode.fst import _build_tables as build_tables_jax
 from pika_tpu.models.transducer import (
     Transducer as TransducerJax,
     TransducerConfig as ConfigJax,
@@ -25,6 +28,7 @@ from pika_tpu.models.transducer import (
 import pika_tpu_torch.models.transformer as transformer_pt
 from pika_tpu_torch.convert import load_flax_variables
 from pika_tpu_torch.decode.beam import NEG, BeamConfig, _dup_mask, beam_search, top_k
+from pika_tpu_torch.decode.fst import _build_tables as build_tables
 from pika_tpu_torch.decode.greedy import greedy_decode
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 
@@ -291,11 +295,137 @@ def test_steps_per_check_gives_identical_results(models, enc_out):
         beam_search(pt, enc, lens, cfg, steps_per_check=0)
 
 
-@pytest.mark.parametrize("field", [dict(lm_scale=0.5), dict(lm_per_token=True),
-                                   dict(nonblk_reward=0.1), None])
-def test_fst_fusion_raises(models, enc_out, field):
+def _lm(seed, negative=False, backoff=True, disambig=False, n_states=10):
+    """One random LM automaton as the JAX package's and the port's
+    ``FstTables`` (the same arcs through each ``_build_tables``): state 0 a
+    final unigram state with arcs on most tokens' ilabels (token + 1), the
+    others contexts with a few arcs, backing off to 0 (``backoff``; without
+    it a grammar whose sets die on other tokens), some final; ``negative``
+    draws weights below 0 (bonuses), ``disambig`` adds disambig arcs."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-1.0, 2.5) if negative else (0.0, 3.0)
+    dis_ids = [VOCAB + 5, VOCAB + 6] if disambig else None
+    arcs, finals = {}, {0: float(rng.uniform(0.0, 1.0))}
+    for s in range(n_states):
+        n_arcs = VOCAB - 4 if s == 0 else int(rng.integers(2, VOCAB // 2))
+        labels = rng.choice(np.arange(2, VOCAB + 1), size=n_arcs, replace=False)
+        arcs[s] = [(int(l), float(rng.uniform(lo, hi)), int(rng.integers(1, n_states)))
+                   for l in labels]
+        if s and backoff:
+            arcs[s].append((0, float(rng.uniform(lo / 2, 1.0)), 0))
+        if disambig and rng.random() < 0.5:
+            arcs[s].append((int(rng.choice(dis_ids)), float(rng.uniform(lo, hi)),
+                            int(rng.integers(0, n_states))))
+        if s and rng.random() < 0.5:
+            finals[s] = float(rng.uniform(lo, hi))
+    return tuple(build(n_states, arcs, finals, start=int(backoff), backoff_id=0,
+                       disambig_ids=dis_ids) for build in (build_tables_jax, build_tables))
+
+
+def _run_fst(model, v, pt, enc, lens, tables, cached, **cfg):
+    tj, tp = tables
+    kw = dict(n_ilabels=VOCAB + 1, cache_max_bytes=1 << 20) if cached else {}
+    ref = beam_search_jax(model, v, jnp.asarray(enc), jnp.asarray(lens), BeamConfigJax(**cfg),
+                          fst_tables=tj.device_arrays(**kw), fst_start=tj.start)
+    got = beam_search(pt, torch.from_numpy(enc), torch.from_numpy(lens), BeamConfig(**cfg),
+                      fst_tables=tp.device_arrays("cpu", **kw), fst_start=tp.start)
+    return {k: np.asarray(x) for k, x in ref.items()}, {k: x.numpy() for k, x in got.items()}
+
+
+# (LM kind, advance cache, config): the three selection modes, each
+# cached and walked where both exist, with nonblk_reward, negative weights
+# and disambig arcs, a grammar whose state sets die (per-beam: the beam is
+# killed; per-token: the candidate) and state sets of capacity 1 and 4
+FST_GRID = [
+    ("backoff", False, dict()),
+    ("backoff", True, dict(nonblk_reward=0.4)),
+    ("backoff", False, dict(lm_per_token=True, lm_topm=4)),
+    ("backoff", True, dict(lm_per_token=True, lm_topm=4, nonblk_reward=0.4)),
+    ("backoff", True, dict(lm_per_token=True, lm_topm=0)),
+    ("negative", True, dict(lm_per_token=True, lm_topm=0, nonblk_reward=0.3)),
+    ("negative", False, dict(nonblk_reward=0.3, lm_scale=1.5)),
+    ("disambig", False, dict(lm_per_token=True, lm_topm=3)),
+    ("disambig", True, dict(lm_per_token=True, lm_topm=0)),
+    ("grammar", False, dict()),
+    ("grammar", True, dict(lm_per_token=True, lm_topm=0)),
+    ("grammar", False, dict(lm_per_token=True, lm_topm=4)),
+    ("backoff", False, dict(lm_per_token=True, lm_topm=4, max_fst_states=1)),
+    ("backoff", True, dict(max_fst_states=1)),
+]
+
+
+@pytest.mark.parametrize("kind,cached,fusion", FST_GRID)
+def test_fst_beam_matches_jax(enc_out, kind, cached, fusion):
+    """FST shallow fusion in every mode against the JAX beam on the same
+    weights, encoder output and LM: tokens, lengths and alignments
+    identical, scores within rtol 1e-5."""
+    model, v, pt = _models(1.0)
+    tables = _lm(3, negative=kind == "negative", backoff=kind != "grammar",
+                 disambig=kind == "disambig")
+    cfg = dict(dict(beam_size=4, n_best=4, max_symbols=6, lm_scale=0.7), **fusion)
+    ref, got = _run_fst(model, v, pt, enc_out, ENC_LENS, tables, cached, **cfg)
+    _assert_same(ref, got)
+    assert got["lens"].max() > 0 and (got["scores"][:, 0] > NEG / 2).any()
+    loop = next(iter(pt._decode_loops.values()))
+    assert loop.state["fst_states"].shape == (3, 4, cfg.get("max_fst_states", 4))
+
+
+@pytest.mark.parametrize("per_token", [False, True])
+def test_fst_fusion_steers_against_plain(models, enc_out, per_token):
+    """An LM whose every token costs 0 (one final state with a free
+    self-loop on every ilabel) leaves the plain search's N-best; a strong
+    LM changes it (the fusion acts)."""
+    model, v, pt = models
+    enc, lens = torch.from_numpy(enc_out), torch.from_numpy(ENC_LENS)
+    base = dict(beam_size=4, n_best=4, max_symbols=6)
+    plain = beam_search(pt, enc, lens, BeamConfig(**base))
+    free = build_tables(1, {0: [(il, 0.0, 0) for il in range(1, VOCAB + 1)]}, {0: 0.0}, 0, 0)
+    fusion = dict(lm_per_token=per_token, lm_topm=0)
+    got = beam_search(pt, enc, lens, BeamConfig(**base, lm_scale=2.0, **fusion),
+                      fst_tables=free.device_arrays("cpu", VOCAB + 1, 1 << 20))
+    for name in plain:
+        assert torch.equal(got[name], plain[name]), name
+    strong = _run_fst(model, v, pt, enc_out, ENC_LENS, _lm(4), True, lm_scale=3.0, **base,
+                      **fusion)[1]
+    assert not np.array_equal(strong["tokens"], plain["tokens"].numpy())
+
+
+def test_fst_loops_keyed_by_lm(enc_out):
+    """Two LMs of one shape decoded in turn through one model give what
+    fresh models give: each LM has its own loop (keyed by the tables'
+    content fingerprint), so a loop made for one never reads the other."""
+    first = _lm(5)[1]
+    tables = [first, dataclasses.replace(first, arc_weight=first.arc_weight[::-1].copy())]
+    cfg = BeamConfig(beam_size=4, n_best=4, max_symbols=6, lm_scale=1.0, lm_per_token=True,
+                     lm_topm=0)
+    enc, lens = torch.from_numpy(enc_out), torch.from_numpy(ENC_LENS)
+
+    def decode(pt, tp):
+        dev = tp.device_arrays("cpu", n_ilabels=VOCAB + 1, cache_max_bytes=1 << 20)
+        return beam_search(pt, enc, lens, cfg, fst_tables=dev, fst_start=tp.start)
+
+    pt = _models(1.0)[2]
+    shared = [decode(pt, tables[i % 2]) for i in range(3)]
+    fresh = [decode(_models(1.0)[2], t) for t in tables]
+    assert len(pt._decode_loops) == 2
+    for got, ref in zip(shared, fresh + fresh[:1]):
+        for name in ref:
+            assert torch.equal(got[name], ref[name]), name
+    assert not torch.equal(fresh[0]["scores"], fresh[1]["scores"])
+
+
+def test_fst_config_errors(models, enc_out):
+    """Exact per-token fusion without the advance cache raises, as in the
+    JAX beam; tables not made by ``device_arrays`` (no fingerprint) raise;
+    with no tables the FST fields change nothing."""
     _, _, pt = models
-    cfg = BeamConfig(beam_size=2, max_symbols=4, **(field or {}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        beam_search(pt, torch.from_numpy(enc_out), torch.from_numpy(ENC_LENS), cfg,
-                    fst_tables=None if field else {"arc_weight": None})
+    enc, lens = torch.from_numpy(enc_out), torch.from_numpy(ENC_LENS)
+    tp = _lm(7)[1]
+    cfg = BeamConfig(beam_size=2, max_symbols=4, lm_scale=0.5, lm_per_token=True, lm_topm=0)
+    with pytest.raises(ValueError, match="advance cache"):
+        beam_search(pt, enc, lens, cfg, fst_tables=tp.device_arrays("cpu"), fst_start=tp.start)
+    with pytest.raises(TypeError, match="device_arrays"):
+        beam_search(pt, enc, lens, cfg, fst_tables=dict(tp.device_arrays("cpu")))
+    plain = beam_search(pt, enc, lens, BeamConfig(beam_size=2, max_symbols=4))
+    for name, x in beam_search(pt, enc, lens, cfg).items():
+        assert torch.equal(x, plain[name]), name

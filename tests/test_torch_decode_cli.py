@@ -233,8 +233,64 @@ def test_cli_matches_jax(corpus, capsys, f32_attention):
             np.testing.assert_allclose(float(g_score), float(r_score), rtol=1e-5)
 
 
+def _write_arpa(path, rng):
+    """A bigram ARPA over the corpus' units (letters), with <s>, </s>,
+    backoffs and a word outside the symbol table."""
+    words = [chr(97 + k) for k in range(1, VOCAB)]
+    unigrams = [("<s>", -99.0, -0.4), ("</s>", -1.2, None), ("zz", -2.0, -0.1)]
+    unigrams += [(w, -float(rng.uniform(0.5, 2.0)), -float(rng.uniform(0.1, 0.5))) for w in words]
+    bigrams = [(a, b, -float(rng.uniform(0.1, 1.5))) for a in ["<s>", "zz"] + words
+               for b in words + ["</s>"] if rng.random() < 0.3]
+    with open(path, "w") as f:
+        f.write(f"\\data\\\nngram 1={len(unigrams)}\nngram 2={len(bigrams)}\n\n\\1-grams:\n")
+        for w, p, bow in unigrams:
+            f.write(f"{p:.4f} {w}" + (f" {bow:.4f}" if bow is not None else "") + "\n")
+        f.write("\n\\2-grams:\n")
+        for a, b, p in bigrams:
+            f.write(f"{p:.4f} {a} {b}\n")
+        f.write("\n\\end\\\n")
+
+
+@pytest.mark.parametrize("fusion", [["--fst_fusion", "per_beam"],
+                                    ["--fst_fusion", "per_token", "--fst_cache_file", "auto"],
+                                    ["--fst_per_token", "--fst_cache_mb", "0",
+                                     "--nonblk_reward", "0.3"]])
+def test_cli_fst_matches_jax(corpus, capsys, f32_attention, fusion):
+    """Both CLIs with ``--fst_lm`` on one ARPA LM, per-beam and per-token
+    (exact through the advance cache, kept in ``<fst_lm>.advcache.npz``;
+    and without the cache, which falls back to the top-8 walk): the N-best
+    files byte-identical, the same WER and the same cache and fallback
+    lines."""
+    d, _ = corpus
+    bundle = _port_bundle(d)
+    arpa = d / f"lm{len(fusion)}.arpa"
+    _write_arpa(arpa, np.random.default_rng(9))
+    extra = ["--fst_lm", str(arpa), "--symbols_map", str(d / "units.txt"), "--fst_lm_scale",
+             "0.8", *fusion]
+    wer_ref = eval_main_jax([str(d / "jax_bundle"), str(d / "wav.scp"), str(d / "fst_ref.txt"),
+                             *_flags(d), *extra])
+    err_ref = capsys.readouterr().err
+    wer = eval_main([bundle, str(d / "wav.scp"), str(d / "fst_got.txt"), "--device", "cpu",
+                     *_flags(d), *extra])
+    err = capsys.readouterr().err
+    assert wer == wer_ref
+
+    def lines(text, prefix):
+        return [x for x in text.splitlines() if x.startswith(prefix)]
+
+    for prefix in ("%WER", "FST advance cache", "per-token fusion"):
+        assert lines(err, prefix) == lines(err_ref, prefix), prefix
+    assert len(lines(err, "FST advance cache")) == (fusion[-1] != "0.3")
+    assert len(lines(err, "per-token fusion")) == (fusion[-1] == "0.3")
+    assert (d / "fst_got.txt").read_bytes() == (d / "fst_ref.txt").read_bytes()
+    got_lines = (d / "fst_got.txt").read_text().splitlines()
+    assert len(got_lines) == N_UTTS * 4 and any(got_lines)  # the comparison saw emissions
+    if "auto" in fusion:
+        assert (d / (arpa.name + ".advcache.npz")).exists()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--fst_lm", "lm.arpa"], "item 4"), (["--las_rescorer_model", "las"], "item 6"),
+    (["--las_rescorer_model", "las"], "item 6"),
     (["--las_rescorer_bw_model", "las"], "item 6"), (["--las_scale_sweep", "0.3:0.7"], "item 6"),
     (["--loader", "utt"], "item 3"), (["--attn_chunk", "64"], "item 3")])
 def test_unported_flags_raise(flags, item):

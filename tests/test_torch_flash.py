@@ -53,6 +53,8 @@ from pika_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    FlashAttention,
+    pad_head,
 )
 from pika_tpu_torch.train.lr import make_optimizer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_train_step
@@ -131,7 +133,7 @@ def _bf16_inputs(rng, b, h, t, d):
 # the plain K4 against the library kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("t", [37, 130])
 def test_plain_k4_matches_pallas_flash(jax_flash, rng, t, d):
     """Forward and the three gradients of ``flash_attention`` (its plain
@@ -173,6 +175,45 @@ def test_k4_wrappers_on_cpu_are_the_plain_versions(rng):
                         flash_attention_bwd_dq.launches)
     with torch.inference_mode():  # the eval step's mode: forward only
         assert torch.equal(flash_attention(q, k, v), o)
+
+
+@pytest.mark.parametrize("d", [136, 200, 256])
+def test_k4_padded_to_256_matches_jax_layer(port_flash, monkeypatch, rng, d):
+    """Head widths in (128, 256]: the port's flash layer through
+    ``pad_head`` (the card's dispatch: zero-padded to the d = 256 kernels'
+    width, here their plain version) against the JAX layer's exact path on
+    the same weights, to K4's tolerance; and the padded K4's gradients
+    against the unpadded plain K4's."""
+    t, heads = 45, 2
+    x = rng.standard_normal((2, t, heads * d)).astype(np.float32)
+    layer = transformer_jax.MultiHeadedAttention(heads, heads * d)
+    variables = jax.tree.map(np.asarray, layer.init(jax.random.PRNGKey(3), x, x, x))
+    ref = np.asarray(layer.apply(variables, x, x, x))
+    widths = []
+
+    def padded(q, k, v):
+        widths.append(q.shape[-1])
+        return pad_head(FlashAttention.apply, q, k, v)
+
+    monkeypatch.setattr(transformer_pt, "flash_attention", padded)
+    pt = convert.load_flax_variables(
+        transformer_pt.MultiHeadedAttention(heads, heads * d, use_flash=True).eval(), variables)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        got = pt(xt, xt, xt).numpy()
+    assert widths == [d]
+    assert _rel_l2(got, ref) < K4_REL_L2, _rel_l2(got, ref)
+
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _bf16_inputs(rng, 1, 2, t, d))
+    grads = []
+    for fn in (lambda *a: pad_head(FlashAttention.apply, *a), FlashAttention.apply):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        assert o.shape == q.shape
+        grads.append([o.detach()] + [a.grad for a in leaves])
+    for name, got_g, ref_g in zip(("o", "dq", "dk", "dv"), *grads):
+        _assert_k4_close(got_g.float().numpy(), ref_g.float().numpy(), name)
 
 
 # ---------------------------------------------------------------------------

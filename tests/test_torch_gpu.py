@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pika_tpu_torch.decode.beam import BeamConfig, beam_search, beam_search_eager
+from pika_tpu_torch.decode.fst import _build_tables, fst_advance_sets, init_state_sets
 from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.models.transformer import MultiHeadedAttention
@@ -332,14 +333,16 @@ def _assert_k4_close(got, ref, name, tol=1e-2):
     """bf16 results: the kernel rounds p relative to the running max of its
     key tiles, the plain version relative to the row max, so they agree to
     bf16 rounding: ``tol`` relative L2 and ``tol`` of the largest entry.  A
-    result that is 0 but for float noise (dk at T = 1, where ds = 0) is held
-    to 1e-5 absolute."""
+    result that is 0 but for float noise (dk and dq at T = 1, where ds = p
+    (dp - di) with dp and di two float32 sums over d in other orders) is held
+    to 1e-5 absolute, times d / 128 past d = 128."""
     assert got.shape == ref.shape and got.dtype == ref.dtype, name
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all(), name
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-    if scale < 1e-5:
-        assert err <= 1e-5, f"{name}: max abs {err}"
+    noise = 1e-5 * max(1.0, got.shape[-1] / 128)
+    if scale < noise:
+        assert err <= noise, f"{name}: max abs {err}"
         return
     rel = ((got - ref).norm() / ref.norm()).item()
     assert rel <= tol and err <= tol * scale, f"{name}: rel L2 {rel}, max abs {err} of {scale}"
@@ -354,22 +357,27 @@ def _k4_launches():
                                    (1, 2, 64, 64), (2, 2, 130, 128), (1, 2, 200, 64),
                                    (2, 16, 992, 64), (1, 8, 239, 128),
                                    *((1, 2, t, d) for t in (127, 128, 129, 255, 1000)
-                                     for d in (64, 128))])
+                                     for d in (64, 128)),
+                                   (1, 1, 1, 256), (2, 3, 37, 256), (1, 2, 33, 256),
+                                   (2, 8, 239, 256), (1, 2, 1000, 256)])
 def test_k4_matches_reference(cuda_device, shape):
     """K4's forward, dk/dv and dq kernels against the plain versions (the
     backward kernels fed the plain forward's o and lse): T = 1, T below,
     at and across the 64-row tile and the backward's 128-row block (127,
     128, 129, 255), T = 1000 (16 streamed tiles: the 3-stage ring wraps 5
-    times), the encoder layers' T = 992 and 239; lse to 1e-4 (float32).
-    One launch of each per call."""
+    times), the encoder layers' T = 992 and 239; the d = 256 kernels at
+    T = 1, across their 32-row tile (33, 37), at 239 and 1000; lse to 1e-4
+    (float32).  One launch of each per call."""
     q, k, v, do = _k4_case(cuda_device, *shape)
-    ref_o, ref_lse = flash_attention_reference(q, k, v)
-    ref_dq, ref_dk, ref_dv = flash_attention_bwd_reference(q, k, v, ref_o, ref_lse, do)
     before = _k4_launches()
     o, lse = flash_attention_fwd(q, k, v)
+    ref_o, ref_lse = flash_attention_reference(q, k, v)
     dk, dv = flash_attention_bwd_dkv(q, k, v, ref_o, ref_lse, do)
     dq = flash_attention_bwd_dq(q, k, v, ref_o, ref_lse, do)
     torch.cuda.synchronize()
+    # the plain backward after the kernels: none of its freed blocks can
+    # stand in for a kernel's unwritten output
+    ref_dq, ref_dk, ref_dv = flash_attention_bwd_reference(q, k, v, ref_o, ref_lse, do)
     assert _k4_launches() == tuple(n + 1 for n in before)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
     for name, got, ref in (("o", o, ref_o), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
@@ -377,7 +385,7 @@ def test_k4_matches_reference(cuda_device, shape):
         _assert_k4_close(got, ref, name)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_k4_forward_rerun_is_bit_identical(cuda_device, d):
     """The forward twice on the same inputs: the same o and lse bits (every
     block owns its queries; no atomics)."""
@@ -482,10 +490,11 @@ def test_flash_layer_matches_exact_on_card(cuda_device):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 37, 16), (1, 16, 300, 16), (2, 3, 130, 32),
-                                   (1, 8, 239, 32), (2, 2, 200, 96)])
+                                   (1, 8, 239, 32), (2, 2, 200, 96), (2, 2, 70, 136),
+                                   (1, 8, 239, 200)])
 def test_k4_pads_other_head_widths(cuda_device, shape):
-    """``flash_attention`` at d = 16, 32 and 96 (tdnn_nhid = 256 gives 16,
-    16 and 32): zero-padded to the kernels' 64 or 128, forward and backward
+    """``flash_attention`` at d = 16, 32, 96, 136 and 200 (tdnn_nhid = 256
+    gives 16, 16 and 32): zero-padded to the kernels' 64, 128 or 256, forward and backward
     through the three kernels (one launch each), against the plain versions
     at the true d."""
     q, k, v, do = _k4_case(cuda_device, *shape)
@@ -502,9 +511,9 @@ def test_k4_pads_other_head_widths(cuda_device, shape):
         _assert_k4_close(got, ref, name)
 
 
-def test_k4_rejects_head_widths_past_128(cuda_device):
-    q, k, v, _ = _k4_case(cuda_device, 1, 2, 40, 192)
-    with pytest.raises(ValueError, match="d_head > 128"):
+def test_k4_rejects_head_widths_past_256(cuda_device):
+    q, k, v, _ = _k4_case(cuda_device, 1, 2, 40, 320)
+    with pytest.raises(ValueError, match="d_head > 256"):
         flash_attention(q, k, v)
 
 
@@ -585,3 +594,57 @@ def test_graph_recaptured_on_shape_change(cuda_device):
             assert torch.equal(x, y)
     loops = model._decode_loops
     assert len(loops) == 6 and all(loop.graph is not None for loop in loops.values())
+
+
+def _fst_tables(vocab, seed=0, n_states=20):
+    """A random backoff LM over the decode model's tokens (ilabel = token +
+    1): state 0 a final unigram state, contexts backing off to it."""
+    rng = np.random.default_rng(seed)
+    arcs, finals = {}, {0: 0.3}
+    for s in range(n_states):
+        labels = rng.choice(np.arange(2, vocab + 1), size=vocab - 10 if s == 0 else 40,
+                            replace=False)
+        arcs[s] = [(int(l), float(rng.uniform(0.0, 3.0)), int(rng.integers(1, n_states)))
+                   for l in labels]
+        if s:
+            arcs[s].append((0, float(rng.uniform(0.0, 1.0)), 0))
+            if rng.random() < 0.5:
+                finals[s] = float(rng.uniform(0.0, 2.0))
+    return _build_tables(n_states, arcs, finals, start=0, backoff_id=0)
+
+
+@pytest.mark.parametrize("fusion,cache_mb", [(dict(), 1), (dict(lm_per_token=True, lm_topm=8), 1),
+                                             (dict(lm_per_token=True, lm_topm=0), 1),
+                                             (dict(lm_per_token=True, lm_topm=8), 0)])
+def test_fst_beam_graph_matches_eager(cuda_device, fusion, cache_mb):
+    """FST fusion in each mode (per-beam, per-token top-8 with the advance
+    cache, exact, top-8 walk): the captured graph against the eager body,
+    bit for bit; the tables are read in place, not copied into the loop."""
+    model, enc, lens = _decode_case(cuda_device)
+    tables = _fst_tables(DECODE_MODEL["vocab_size"])
+    dev = tables.device_arrays(cuda_device, n_ilabels=DECODE_MODEL["vocab_size"] + 1,
+                               cache_max_bytes=cache_mb << 20)
+    assert ("adv_cost" in dev) == bool(cache_mb)
+    cfg = BeamConfig(beam_size=8, n_best=4, max_symbols=12, lm_scale=0.8, nonblk_reward=0.3,
+                     **fusion)
+    graphed = beam_search(model, enc, lens, cfg, dev, tables.start)
+    _assert_same_nbest(graphed, beam_search_eager(model, enc, lens, cfg, dev, tables.start))
+    _assert_same_nbest(graphed, beam_search(model, enc, lens, cfg, dev, tables.start))
+    loop = next(iter(model._decode_loops.values()))
+    assert loop.graph is not None and loop.fst["arc_weight"] is dev["arc_weight"]
+
+
+def test_fst_walk_on_card_equals_cpu(cuda_device):
+    """The walk (binary searches of a fixed step count, backoff levels,
+    dedup) on the card gives the CPU's bits."""
+    tables = _fst_tables(300, seed=1)
+    dev, cpu = tables.device_arrays(cuda_device), tables.device_arrays("cpu")
+    g = torch.Generator().manual_seed(0)
+    sets_dev = init_state_sets(tables, (4, 8), 4, cuda_device)
+    sets_cpu = init_state_sets(tables, (4, 8), 4, "cpu")
+    for _ in range(8):
+        labels = torch.randint(1, 302, (4, 8), generator=g)
+        *sets_dev, lm_dev = fst_advance_sets(dev, *sets_dev, labels.to(cuda_device), 6, 0.2)
+        *sets_cpu, lm_cpu = fst_advance_sets(cpu, *sets_cpu, labels, 6, 0.2)
+        for a, b in zip(sets_dev + [lm_dev], sets_cpu + [lm_cpu]):
+            assert torch.equal(a.cpu(), b)
