@@ -39,6 +39,19 @@ V=6268, random weights from a seed):
   warm-up step, then 3 timed steps from one seeded generator, a profiled
   step, and one step each on the kernel and the plain loss backends from
   the same weights and seed, which must agree;
+* the training CLI (``train/train_transducer.py``) in process
+  on a seeded synthetic corpus (64 training and 16 validation utterances
+  of 2-12 s written by ``python -m pika_tpu_torch.data.prep wav_to_seq``,
+  CMVN from ``compute_global_cmvn`` with ``egs/fbank.conf``), at the
+  flagship width with the recipe's flags (``egs/train_transducer.sh``,
+  ``--dp_mode sync``): 2 epochs with validation and bundles (the per-epoch
+  lines, peak memory, K1-K3's launches), a ``--resume`` to a third epoch
+  (the restored momentum and schedule step against the saved ones), one
+  epoch at ``--compute_dtype bfloat16`` (its first batch within 2% of
+  float32's), the bf16 and float32 steps timed at 8 x 12 s, one step each
+  at 8 x 20 s and 2 x 60 s exact and 2 x 60 s with remat and 512-row
+  chunked attention (wall time, peak memory), one ``--loader utt`` epoch
+  over a Kaldi feature ark, and the decode CLI on the trained bundle;
 * the flash-attention path (``attn_flash=True``), whose encoder attention
   runs through K4: K4 forward and backward against their plain versions at
   ragged shapes, at the three encoder layers' shapes (B = 8 and 32) and at
@@ -86,7 +99,9 @@ import time
 import numpy as np
 import torch
 
-from pika_tpu_torch.data.wavio import write_wav
+from pika_tpu_torch.data.kaldi_ark import write_matrix_ark
+from pika_tpu_torch.data.prep import main as prep_main
+from pika_tpu_torch.data.wavio import read_wav, write_wav
 from pika_tpu_torch.decode.beam import (
     BeamConfig,
     beam_search,
@@ -129,9 +144,12 @@ from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_loss_numpy,
     rnnt_occupancy,
 )
+from pika_tpu_torch.features.fbank import make_fbank_fn
 from pika_tpu_torch.train.bundle import save_bundle
+from pika_tpu_torch.train.checkpoint import restore_checkpoint
 from pika_tpu_torch.train.eval_transducer import main as eval_main
-from pika_tpu_torch.train.lr import make_optimizer
+from pika_tpu_torch.train.lr import Optimizer, make_optimizer
+from pika_tpu_torch.train.train_transducer import main as train_main
 from pika_tpu_torch.train.step import (
     FeaturizerConfig,
     make_eval_step,
@@ -215,6 +233,29 @@ LONG_SECONDS, LONG_BATCH, LONG_LABELS = 60, 4, 240
 # (measured on an H100: 4.4e-2 to 8.3e-2 in the worst encoder tensor over
 # three runs)
 FLASH_LOSS_RTOL, FLASH_ENCODER_TOL, FLASH_STATS_TOL = 1e-3, 2e-1, 1e-2
+# the training CLI phase: a seeded synthetic corpus in mrk/seq archives (64
+# training and 16 validation utterances of 2-12 s of int16 noise, about 2.5
+# labels a second, so that the longest stays under --TU_limit 15000 after
+# speed 0.9), the recipe's command line (egs/train_transducer.sh:37-53) with
+# --dp_mode sync, 2 epochs, a resume to a third, one bf16 epoch and one
+# --loader utt epoch; the bf16 first batch within BF16_FIRST_RTOL of float32
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_UTTS = {"train": 64, "valid": 16}
+CLI_SECONDS = (2.0, 12.0)
+CLI_LABELS_PER_SECOND = 2.5
+CLI_MODEL_FLAGS = ["--encoder_type", "transformer", "--enc_layers", "9", "--tdnn_nhid", "1024",
+                   "--decoder_type", "rnn", "--dec_layers", "2", "--rnn_size", "1024",
+                   "--embd_dim", "100", "--output_dim", str(VOCAB)]
+CLI_RECIPE_FLAGS = ["--initial_lr", "0.003", "--final_lr", "0.0001", "--grad_clip", "3.0",
+                    "--momentum", "0.9", "--batch_size", "8", "--lctx", "1", "--rctx", "1",
+                    "--stride", "1", "--TU_limit", "15000", "--spec_augment",
+                    "--max_freq_span", "15", "--max_time_span", "35", "--dp_mode", "sync"]
+CLI_EPOCHS, CLI_BATCHES_PER_EPOCH = 2, 8
+BF16_FIRST_RTOL = 2e-2
+# (batch, seconds, labels, model options) of the single long steps: the
+# recipe's largest bucket (8 x 20 s), and 2 x 60 s exact and with the
+# recipe's long-utterance levers
+LONG_STEPS = ((8, 20, 50, {}), (2, 60, 150, {}), (2, 60, 150, {"remat": True, "attn_chunk": 512}))
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -527,14 +568,14 @@ def inference_path(device) -> tuple[int, float]:
     return launches, loss.item()
 
 
-def train_setup(device, batch: dict, backend: str = "auto", **model_kw):
+def train_setup(device, batch: dict, backend: str = "auto", compute_dtype=None, **model_kw):
     """A flagship model from seed 0 (``model_kw`` override its config) with
     bench.py's optimizer and the training featurizer (dither 1.0,
     SpecAugment), CMVN from the batch's own frames; returns
     ``(model, step)``."""
     model = init_transducer(TransducerConfig(**{**FLAGSHIP, **model_kw}),
                             torch.Generator(device).manual_seed(0), device)
-    feat_cfg = dict(max_samples=SR * SECONDS, lctx=1, rctx=1)
+    feat_cfg = dict(max_samples=batch["wavs"].shape[1], lctx=1, rctx=1)
     with torch.no_grad():
         plain = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=0.0, **FBANK),
                                                  **feat_cfg), device=device)
@@ -546,7 +587,7 @@ def train_setup(device, batch: dict, backend: str = "auto", **model_kw):
         offset, scale, device=device)
     optimizer = make_optimizer(model.parameters(), "sgd", **OPTIM)
     return model, make_train_step(model, optimizer, featurizer, loss_chunk=16,
-                                  loss_backend=backend)
+                                  loss_backend=backend, compute_dtype=compute_dtype)
 
 
 def dp_seconds(fn, repeats: int = 3) -> float:
@@ -616,6 +657,253 @@ def train_path(device) -> tuple[dict, float]:
     del model, step, before
     torch.cuda.empty_cache()
     return launches, step_s
+
+
+def write_cli_corpus(work: str, device) -> dict:
+    """The CLI phase's corpus: CLI_UTTS seeded utterances per split as wavs,
+    a label.txt, mrk/seq archives written by ``python -m
+    pika_tpu_torch.data.prep wav_to_seq`` and a data list; then the global
+    CMVN statistics of the training split with egs/fbank.conf (in process,
+    on ``device``).  Returns the paths."""
+    rng = np.random.default_rng(4)
+    paths = {}
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    for split, n in CLI_UTTS.items():
+        d = os.path.join(work, split)
+        os.makedirs(d)
+        with open(os.path.join(d, "wav.scp"), "w") as scp, \
+                open(os.path.join(d, "label.txt"), "w") as lab:
+            for i in range(n):
+                secs = float(rng.uniform(*CLI_SECONDS))
+                path = os.path.join(d, f"{split}{i}.wav")
+                write_wav(path, (rng.standard_normal(int(SR * secs)) * 3000).astype(np.int16), SR)
+                scp.write(f"{split}{i} {path}\n")
+                n_labels = max(1, round(CLI_LABELS_PER_SECOND * secs))
+                lab.write(f"{split}{i} " + " ".join(map(str, rng.integers(1, VOCAB, n_labels)))
+                          + "\n")
+        out = subprocess.run([sys.executable, "-m", "pika_tpu_torch.data.prep", "wav_to_seq",
+                              os.path.join(d, "wav.scp"), os.path.join(d, "a.mrk"),
+                              os.path.join(d, "a.seq"), "--device", str(device)],
+                             cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"prep wav_to_seq: {out.stderr[-2000:]}")
+        with open(os.path.join(d, "data.lst"), "w") as f:
+            for line in out.stdout.splitlines():
+                mrk, seq = line.split()
+                f.write(f"{mrk} {seq} ark:{os.path.join(d, 'label.txt')}\n")
+        paths[split] = d
+    t1 = time.perf_counter()
+    paths["fbank"] = os.path.join(REPO, "egs", "fbank.conf")
+    paths["stats"] = os.path.join(work, "global_cmvn.stats")
+    prep_main(["compute_global_cmvn", os.path.join(paths["train"], "data.lst"), paths["stats"],
+               "--feat_config", paths["fbank"], "--device", str(device)])
+    say(f"train CLI corpus: {CLI_UTTS} utterances of {CLI_SECONDS[0]}-{CLI_SECONDS[1]} s: wavs + "
+        f"prep wav_to_seq {t1 - t0:.3f} s, compute_global_cmvn (egs/fbank.conf) "
+        f"{time.perf_counter() - t1:.3f} s")
+    return paths
+
+
+def cli_run(what: str, argv: list, log: str) -> tuple[list, float, float]:
+    """``train_main(argv)`` in process; prints the log's epoch lines and
+    returns (the log's lines, wall seconds, peak device memory in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(log) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith(("===>", "resumed", "prefetch", "Finished")):
+            say(f"{what}: {line}")
+    say(f"{what}: {secs:.3f} s in all, peak memory {peak:.3f} GiB")
+    check(lines[-1] == "Training Finished", f"{what} finished")
+    losses = [float(x) for line in lines for x in re.findall(r"Overall Avg Loss: (\S+)", line)]
+    check(len(losses) > 0 and all(math.isfinite(x) for x in losses), f"{what} losses {losses}")
+    return lines, secs, peak
+
+
+def first_batch_loss(lines: list) -> float:
+    """The first per-batch line's loss per label (--log_per_n_frames 1)."""
+    return float(next(re.match(r"Loss: (\S+)", x).group(1) for x in lines
+                      if x.startswith("Loss: ")))
+
+
+def write_feature_ark(paths: dict, device) -> str:
+    """The training split's fbank features (egs/fbank.conf, no dither) as a
+    Kaldi ark, for --loader utt."""
+    fb = FbankConfig.from_conf(paths["fbank"])
+    items = []
+    with open(os.path.join(paths["train"], "wav.scp")) as scp:
+        for line in scp:
+            uttid, path = line.split()
+            pcm, _ = read_wav(path)
+            x = torch.from_numpy(pcm.astype(np.float32)).to(device)[None]
+            feats, lens = make_fbank_fn(fb, x.shape[1], device=device)(
+                x, torch.tensor([x.shape[1]], device=device))
+            items.append((uttid, feats[0, :int(lens[0])].cpu().numpy()))
+    ark = os.path.join(paths["train"], "feats.ark")
+    write_matrix_ark(ark, items)
+    return ark
+
+
+def step_times(device) -> None:
+    """The bf16-compute step beside the float32 step: the recipe's batch of
+    8 utterances of 12 s, 30 labels, one warm-up and TIMED_STEPS timed
+    steps each from one seeded generator."""
+    batch = flagship_batch(device, 8, seconds=12, labels=30)
+    medians = {}
+    for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+        model, step = train_setup(device, batch, compute_dtype=dtype)
+        gen = torch.Generator(device).manual_seed(1)
+        step(batch, gen)["loss"].item()
+        times, losses = [], []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(batch, gen)["loss"].item())
+            times.append(time.perf_counter() - t0)
+        medians[name] = statistics.median(times)
+        say(f"train step at compute_dtype {name}, batch 8 x 12 s: "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, median {medians[name] * 1e3:.1f} ms; "
+            f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+        check(all(math.isfinite(x) for x in losses), f"{name} step losses finite")
+        del model, step
+        torch.cuda.empty_cache()
+    say(f"train step bf16 / float32: {medians['bf16'] / medians['float32']:.3f}")
+
+
+def long_train_steps(device) -> None:
+    """One train step (after one warm-up step) at each of LONG_STEPS: wall
+    time and peak memory, exact attention against remat + chunking."""
+    for b, secs, labels, kw in LONG_STEPS:
+        batch = flagship_batch(device, b, seconds=secs, labels=labels)
+        model, step = train_setup(device, batch, **kw)
+        gen = torch.Generator(device).manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        step(batch, gen)["loss"].item()
+        t0 = time.perf_counter()
+        loss = step(batch, gen)["loss"].item()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        say(f"train step {b} x {secs} s, {labels} labels, {kw or 'exact attention'}: "
+            f"{wall:.3f} s, peak memory {peak / 2**30:.3f} GiB, loss {loss:.4f}")
+        check(math.isfinite(loss), "long train step loss finite")
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+
+def train_cli_path(device) -> dict:
+    """The training CLI (``train/train_transducer.py``) in process on a
+    seeded corpus at the flagship width with the recipe's flags: 2 epochs
+    with validation and bundles, a resume to a third epoch (the restored
+    momentum and schedule step against the saved ones), one bf16 epoch
+    (its first batch against float32's), the bf16 and float32 steps timed,
+    the long-utterance steps, one --loader utt epoch and the decode CLI on
+    the trained bundle.  Returns K1-K3's launches over the first run."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        paths = write_cli_corpus(work, device)
+        train_lst = os.path.join(paths["train"], "data.lst")
+        common = [*CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS, "--feat_config", paths["fbank"],
+                  "--cmvn_stats", paths["stats"], "--device", str(device),
+                  "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--log_per_n_frames", "1"]
+        exp = os.path.join(work, "exp")
+        log = os.path.join(work, "train.log")
+        reset_launches()
+        lines, _, _ = cli_run("train CLI", [train_lst, log, exp, *common,
+                                            "--num_epochs", str(CLI_EPOCHS), "--valid_data_lst",
+                                            os.path.join(paths["valid"], "data.lst")], log)
+        launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                    "K3": joint_channels_bwd_w.launches}
+        say(f"train CLI launches over {CLI_EPOCHS} epochs with validation: {launches}")
+        check(all(n > 0 for n in launches.values()), f"the CLI launched K1-K3: {launches}")
+        check(sum("valid loss/label" in x for x in lines) == CLI_EPOCHS, "validation lines")
+        for e in range(CLI_EPOCHS):
+            check(os.path.exists(os.path.join(exp, f"model.epoch.{e}", "model.pt")),
+                  f"bundle model.epoch.{e}")
+        f32_first = first_batch_loss(lines)
+
+        # --resume to a third epoch: the optimizer the CLI restores against
+        # the saved state
+        saved = restore_checkpoint(os.path.join(exp, "ckpt"), CLI_EPOCHS - 1, map_location=device)
+        restored = []
+        load = Optimizer.load_state_dict
+
+        def recording_load(self, state):
+            load(self, state)
+            restored.append((self.count, [self.opt.state[p]["momentum_buffer"].clone()
+                                          for p in self.params]))
+
+        Optimizer.load_state_dict = recording_load
+        try:
+            lines, _, _ = cli_run("train CLI --resume", [
+                train_lst, os.path.join(work, "resume.log"), exp, *common,
+                "--num_epochs", str(CLI_EPOCHS + 1), "--resume"], os.path.join(work, "resume.log"))
+        finally:
+            Optimizer.load_state_dict = load
+        check(any(x.startswith(f"resumed from epoch {CLI_EPOCHS - 1}") for x in lines), "resumed")
+        count, moms = restored[0]
+        saved_moms = [saved["optimizer"]["optimizer"]["state"][i]["momentum_buffer"]
+                      for i in range(len(moms))]
+        check(count == saved["optimizer"]["count"] > 0,
+              f"schedule step restored: {count} vs saved {saved['optimizer']['count']}")
+        check(len(moms) == len(saved["optimizer"]["optimizer"]["state"]) > 0
+              and all(torch.equal(a, b) for a, b in zip(moms, saved_moms)),
+              "momentum buffers restored")
+        say(f"resume: schedule step {count} and {len(moms)} momentum buffers equal the saved "
+            f"ones: ok")
+
+        # one bf16 epoch from the same seed
+        bf16_log = os.path.join(work, "bf16.log")
+        lines, _, _ = cli_run("train CLI --compute_dtype bfloat16", [
+            train_lst, bf16_log, os.path.join(work, "exp_bf16"), *common, "--num_epochs", "1",
+            "--compute_dtype", "bfloat16"], bf16_log)
+        bf16_first = first_batch_loss(lines)
+        rel = abs(bf16_first - f32_first) / abs(f32_first)
+        say(f"first batch loss/label bf16 {bf16_first} vs float32 {f32_first}: rel {rel:.3e} "
+            f"(rtol {BF16_FIRST_RTOL})")
+        check(rel <= BF16_FIRST_RTOL, "bf16 first batch within tolerance of float32")
+        step_times(device)
+        long_train_steps(device)
+
+        # one --loader utt epoch over Kaldi arks of the training split
+        t0 = time.perf_counter()
+        ark = write_feature_ark(paths, device)
+        say(f"feature ark of the training split: {time.perf_counter() - t0:.3f} s")
+        utt_log = os.path.join(work, "utt.log")
+        cli_run("train CLI --loader utt", [
+            ark, utt_log, os.path.join(work, "exp_utt"), *common, "--num_epochs", "1",
+            "--loader", "utt", "--ali_rspec", f"ark:{os.path.join(paths['train'], 'label.txt')}",
+            "--feats_dim", "80"], utt_log)
+
+        # the decode CLI on the resumed run's last bundle
+        valid = paths["valid"]
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            wer = eval_main([os.path.join(exp, f"model.epoch.{CLI_EPOCHS}"),
+                             os.path.join(valid, "wav.scp"), os.path.join(work, "nbest.txt"),
+                             "--beam_size", str(BEAM), "--n_best", str(NBEST),
+                             "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1),
+                             "--feat_config", paths["fbank"], "--cmvn_stats", paths["stats"],
+                             "--ref_labels", f"ark:{os.path.join(valid, 'label.txt')}",
+                             "--device", str(device)])
+        with open(os.path.join(work, "nbest.txt")) as f:
+            n_lines = len(f.read().splitlines())
+        for line in err.getvalue().splitlines():
+            say(f"decode CLI on model.epoch.{CLI_EPOCHS}: {line}")
+        check(n_lines == CLI_UTTS["valid"] * NBEST and wer is not None,
+              f"decode CLI: {n_lines} N-best lines")
+        say(f"decode CLI: {time.perf_counter() - t0:.3f} s, {n_lines} N-best lines, WER "
+            f"{wer:.4f} (trained {CLI_EPOCHS + 1} epochs on noise: printed, not judged)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"train CLI phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches
 
 
 def profile(fn, what: str, also: str = "") -> None:
@@ -1504,13 +1792,15 @@ def main() -> int:
     long_utterances(device)
     small_heads_path(device)
     launches, _ = train_path(device)
+    cli_launches = train_cli_path(device)
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)
     profile_beam(device, work)
     shutil.rmtree(work)
 
-    say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}")
+    say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}; "
+        f"training CLI (2 epochs + validation) {cli_launches}")
     say(card)
     print(json.dumps({"kernels": [
         {"name": "joint_channels_fwd", "route": "cuda",

@@ -1,5 +1,5 @@
-"""Global CMVN statistics for ``--cmvn_stats`` (the port's own copy of the
-reading half of ``pika_tpu/data/cmvn.py``).
+"""Global CMVN statistics: accumulation and Kaldi-compatible text I/O (the
+port's own copy of ``pika_tpu/data/cmvn.py``).
 
 Stats layout (Kaldi's): a 2 x (dim+1) float64 matrix, row 0 = [sum(x) per
 dim, frame count], row 1 = [sum(x^2) per dim, 0], in Kaldi's text matrix
@@ -17,6 +17,20 @@ class CmvnStats:
     def __init__(self, dim: int):
         self.stats = np.zeros((2, dim + 1), dtype=np.float64)
 
+    @property
+    def dim(self) -> int:
+        return self.stats.shape[1] - 1
+
+    def accumulate(self, feats: np.ndarray) -> None:
+        """Accumulate frames (num_frames, dim)."""
+        feats = np.asarray(feats, dtype=np.float64)
+        self.stats[0, :-1] += feats.sum(axis=0)
+        self.stats[1, :-1] += (feats ** 2).sum(axis=0)
+        self.stats[0, -1] += feats.shape[0]
+
+    def write(self, path: str) -> None:
+        write_kaldi_matrix(path, self.stats)
+
     @classmethod
     def read(cls, path: str) -> "CmvnStats":
         mat = read_kaldi_matrix(path)
@@ -25,6 +39,17 @@ class CmvnStats:
         obj = cls(mat.shape[1] - 1)
         obj.stats = mat
         return obj
+
+
+def write_kaldi_matrix(path: str, mat: np.ndarray) -> None:
+    """Write a matrix in Kaldi text format: `` [\\n  row\\n ... row ]``."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(" [")
+        for i, row in enumerate(np.asarray(mat)):
+            f.write("\n  " + " ".join(repr(float(x)) for x in row))
+            if i == mat.shape[0] - 1:
+                f.write(" ]")
+        f.write("\n")
 
 
 def read_kaldi_matrix(path: str) -> np.ndarray:

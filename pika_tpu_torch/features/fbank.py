@@ -153,11 +153,13 @@ def make_fbank_fn(config: FbankConfig, max_samples: int, device=None):
     """Build a batched fbank over padded waveforms on ``device`` (the CUDA
     card unless the caller names another, e.g. ``"cpu"``).
 
-    Returns ``fbank(waveforms[B, max_samples], num_samples[B], generator=None)
-    -> (feats[B, max_frames, num_mel_bins], frame_lens[B])``.  Frames past an
-    element's true length are computed on padding and must be masked by the
-    caller through ``frame_lens``.  Dither is drawn from ``generator`` when
-    one is given and ``config.dither`` is non-zero.
+    Returns ``fbank(waveforms[B, max_samples], num_samples[B], generator=None,
+    noise=None) -> (feats[B, max_frames, num_mel_bins], frame_lens[B])``.
+    Frames past an element's true length are computed on padding and must be
+    masked by the caller through ``frame_lens``.  Dither is drawn from
+    ``generator`` when one is given and ``config.dither`` is non-zero;
+    ``noise`` (B, frames, frame_length) gives the dither's unit normal draws
+    instead (the data prep draws them with numpy, as the JAX tool does).
     """
     flen, fshift = config.frame_length, config.frame_shift
     padded = config.padded_window_size
@@ -168,10 +170,13 @@ def make_fbank_fn(config: FbankConfig, max_samples: int, device=None):
     preemph = config.preemphasis_coefficient
 
     def fbank(waveforms: torch.Tensor, num_samples: torch.Tensor,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[torch.Tensor] = None):
         x = waveforms.float()
         frames = x.unfold(1, flen, fshift)  # (B, max_frames, flen), a view
-        if config.dither != 0.0 and generator is not None:
+        if config.dither != 0.0 and noise is not None:
+            frames = frames + config.dither * noise
+        elif config.dither != 0.0 and generator is not None:
             frames = frames + config.dither * torch.randn(
                 frames.shape, generator=generator, device=frames.device)
         if config.remove_dc_offset:

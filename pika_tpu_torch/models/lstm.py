@@ -4,15 +4,21 @@
 Gate order is torch's (i, f, g, o) with one fused bias per layer, as in the
 JAX package, so converted weights drop straight in.  The sequence pass
 mirrors ``_scan_direction``: the input projection of the whole sequence is
-one matmul, and only ``h @ Whh`` runs per step.  The bidirectional encoder
+one matmul, and only ``h @ Whh`` runs per step.  In train mode, dropout of
+``dropout`` acts between layers, never after the last one, with masks
+drawn from the generator passed to ``forward``.  The bidirectional encoder
 LSTM with ``lengths`` masking is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pika_tpu_torch.models.transformer import dropout as _dropout
 
 
 def lstm_cell_step(w_ih, w_hh, b, x, h, c):
@@ -30,13 +36,15 @@ class LSTM(nn.Module):
     Parameters per layer k: ``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}``
     (4H, H) and the fused ``bias_l{k}`` (4H,).  Runs from a zero state and
     returns ``(outputs, (h, c))`` with outputs (B, T, H) and h/c
-    (num_layers, B, H).
+    (num_layers, B, H).  ``dropout`` applies between layers in train mode.
     """
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, device=None):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.dropout = dropout
         for k in range(num_layers):
             in_dim = input_size if k == 0 else hidden_size
             self.register_parameter(
@@ -50,7 +58,7 @@ class LSTM(nn.Module):
         return (getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
                 getattr(self, f"bias_l{k}"))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         b, t, _ = x.shape
         final_h, final_c = [], []
         out = x
@@ -65,6 +73,8 @@ class LSTM(nn.Module):
                 h = torch.sigmoid(o) * torch.tanh(c)
                 ys.append(h)
             out = torch.stack(ys, dim=1)
+            if self.training and k < self.num_layers - 1:
+                out = _dropout(out, self.dropout, generator)
             final_h.append(h)
             final_c.append(c)
         return out, (torch.stack(final_h), torch.stack(final_c))

@@ -14,7 +14,11 @@ variance over (B, T) and updates ``ra = 0.9 ra + 0.1 stat`` with that same
 biased variance (``torch.nn.BatchNorm1d`` would use the unbiased one).  The
 transformer layers run with ``transformer_dropout`` in train mode, and
 ``attn_flash`` takes their attention core through K4 where the JAX layer
-takes its flash kernel (``models/transformer.py``).
+takes its flash kernel, ``attn_chunk`` computes it over query blocks and
+``attn_cheap_dropout`` shares its probability mask across heads
+(``models/transformer.py``).  ``remat`` recomputes each transformer layer
+in the backward instead of keeping its activations, drawing the same
+dropout masks again (``checkpoint_with_generator``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pika_tpu_torch.models.transformer import TransformerEncoderLayer
+from pika_tpu_torch.models.transformer import TransformerEncoderLayer, checkpoint_with_generator
 
 BN_MOMENTUM = 0.9  # flax's momentum: the share of the old running statistic
 BN_EPS = 1e-5
@@ -38,27 +42,31 @@ def _conv_out_len(length, kernel: int, dilation: int, stride: int):
 def _bn(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """BatchNorm over the channel axis of a (B, T, C) tensor, as flax's
     ``nn.BatchNorm``; in train mode it also updates bn's running statistics
-    in place."""
+    in place.  In train mode the statistics and the normalization are
+    computed in float32 and the result cast to x's dtype, as flax does for
+    a bf16 input (the running statistics stay float32)."""
     if not bn.training:
         return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
-    flat = x.reshape(-1, x.shape[-1])
+    flat = x.reshape(-1, x.shape[-1]).float()
     mean = flat.mean(dim=0)
     var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)  # flax's fast variance
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
-    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return ((x.float() - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias).to(x.dtype)
 
 
 class TDNNTransformerEncoder(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, tdnn_nhid: int = 1024,
                  tdnn_layers: int = 9, filter_size: int = 3,
                  heads: Sequence[int] = (16, 16, 8), transformer_dropout: float = 0.2,
-                 attn_flash: bool = False, device=None):
+                 attn_flash: bool = False, attn_chunk: int = 0, attn_cheap_dropout: bool = False,
+                 remat: bool = False, device=None):
         super().__init__()
         if tdnn_layers <= 4:
             raise ValueError("tdnn_layers must be > 4")
         self.tdnn_layers = tdnn_layers
+        self.remat = remat
         self.filter_size = filter_size
         nhid = tdnn_nhid
         self.fc_in = nn.Linear(input_dim, nhid, device=device)
@@ -72,7 +80,7 @@ class TDNNTransformerEncoder(nn.Module):
             if (l + 1) % 3 == 0 and n_transformers < len(heads):
                 self.add_module(f"transformer_{n_transformers}", TransformerEncoderLayer(
                     nhid, heads[n_transformers], nhid * 4, transformer_dropout, attn_flash,
-                    device=device))
+                    attn_chunk, attn_cheap_dropout, device=device))
                 n_transformers += 1
         self.n_transformers = n_transformers
         self.bn_final = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)
@@ -91,6 +99,12 @@ class TDNNTransformerEncoder(nn.Module):
             out = _conv_out_len(out, self.filter_size, d, s)
         return out
 
+    @property
+    def context(self) -> int:
+        """Context frames the convolutions consume: model_lctx + model_rctx."""
+        dil, _ = self._dilations_strides()
+        return sum(2 * d for d in dil)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, input_dim) -> (B, T', output_dim); dropout masks in train
         mode come from ``generator``."""
@@ -101,6 +115,11 @@ class TDNNTransformerEncoder(nn.Module):
             x = torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
             x = _bn(x, getattr(self, f"bn_{l}"))
             if (l + 1) % 3 == 0 and t_layer < self.n_transformers:
-                x = getattr(self, f"transformer_{t_layer}")(x, generator=generator)
+                layer = getattr(self, f"transformer_{t_layer}")
+                if self.remat:
+                    x = checkpoint_with_generator(lambda y, g, layer=layer: layer(y, generator=g),
+                                                  generator, x)
+                else:
+                    x = layer(x, generator=generator)
                 t_layer += 1
         return self.fc_out(_bn(x, self.bn_final))

@@ -7,12 +7,15 @@ with the first-layer biases on the y side only.  Blank = 0 doubles as SOS,
 prepended to the labels before the prediction net.
 
 ``attn_flash`` takes the encoder's attention core through K4
-(``ops/flash_attention.py``) where the JAX package takes its flash kernel.
+(``ops/flash_attention.py``) where the JAX package takes its flash kernel;
+``attn_chunk``, ``attn_cheap_dropout`` and ``remat`` are the encoder's
+(``models/tdnn_transformer.py``).
 
 Train mode is the module's own (``model.train()``): the encoder's BatchNorm
-takes batch statistics and updates its running ones, and its transformer
-layers drop out with ``tdnn_transformer_dropout``, drawing their masks from
-the generator passed to ``encode``.
+takes batch statistics and updates its running ones, its transformer layers
+drop out with ``tdnn_transformer_dropout`` and the prediction net between
+its LSTM layers with ``dropout``, drawing their masks from the generator
+passed to ``encode`` and ``predict``.
 """
 
 from __future__ import annotations
@@ -69,52 +72,48 @@ class Transducer(nn.Module):
         if cfg.encoder_type != "tdnn_transformer" or cfg.decoder_type != "rnn":
             raise NotImplementedError(
                 f"encoder {cfg.encoder_type!r} / decoder {cfg.decoder_type!r}: only "
-                "tdnn_transformer + rnn is ported")
-        if cfg.attn_chunk or cfg.simple_joint:
-            raise NotImplementedError("attn_chunk and simple_joint are not ported yet")
+                "tdnn_transformer + rnn is ported (the rnn encoder and the transformer "
+                "prediction net are ROADMAP Queue 1 item 9)")
+        if cfg.simple_joint:
+            raise NotImplementedError("simple_joint (the pruned loss's heads) is not ported yet: "
+                                      "ROADMAP Queue 1 item 8")
         self.config = cfg
         h = cfg.hid_dim
         self.encoder = TDNNTransformerEncoder(
             cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
             transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
-            device=device)
+            attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
+            remat=cfg.remat, device=device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
-        self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, device=device)
+        self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, cfg.dropout, device=device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
         self.fc1_y = nn.Linear(h, h, device=device)
         self.gate_x = nn.Linear(h, h, bias=False, device=device)
         self.gate_y = nn.Linear(h, h, device=device)
         self.fc2 = nn.Linear(h, cfg.vocab_size, device=device)
 
-    def _check_trainable(self) -> None:
-        cfg = self.config
-        if self.training and (cfg.dropout > 0 or cfg.attn_cheap_dropout or cfg.remat):
-            raise NotImplementedError("train mode with LSTM dropout (dropout > 0), "
-                                      "attn_cheap_dropout or remat is not ported yet")
-
     def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, D) -> (B, T', H).  ``x_len`` is unused: the TDNN encoder
         sees the padded frames, as the JAX encoder does.  Train mode draws
         dropout masks from ``generator``."""
-        self._check_trainable()
         return self.encoder(x, generator=generator)
 
     def encoder_out_len(self, x_len):
         return self.encoder.output_length(x_len)
 
-    def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Prediction net over labels with SOS prepended: (B, U) -> (B, U+1, H).
         Positions at or past ``y_len + 1`` take the padding embedding row.
-        The prediction net has no dropout (``dropout`` = 0), so it is the
-        same function in train mode."""
-        self._check_trainable()
+        Train mode drops out between the LSTM layers with masks from
+        ``generator``."""
         pad_id = self.config.pad_id
         y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
         if y_len is not None:
             pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
             y_in = torch.where(pad_pos, pad_id, y_in)
-        out, _ = self.decoder(self.embed(y_in.clamp(0, pad_id).long()))
+        out, _ = self.decoder(self.embed(y_in.clamp(0, pad_id).long()), generator)
         return out
 
     def predict_step(self, y_tok: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):

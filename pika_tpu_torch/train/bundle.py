@@ -36,12 +36,14 @@ def _write(directory: str, spec: dict, state_dict: dict) -> str:
     return directory
 
 
-def save_bundle(directory: str, model: Transducer, metadata: dict = None) -> str:
-    """Write ``model`` (its configuration and state dict) as a bundle of
-    kind ``transducer``; returns the directory."""
+def save_bundle(directory: str, model: Transducer, metadata: dict = None,
+                state_dict: dict = None) -> str:
+    """Write ``model`` (its configuration and state dict, or ``state_dict``
+    when given: a host copy taken earlier) as a bundle of kind
+    ``transducer``; returns the directory."""
     spec = {"kind": "transducer", "config": dataclasses.asdict(model.config),
             "metadata": metadata or {}}
-    return _write(directory, spec, model.state_dict())
+    return _write(directory, spec, model.state_dict() if state_dict is None else state_dict)
 
 
 def bundle_from_flax(directory: str, spec: dict, variables_np: dict) -> str:

@@ -2,7 +2,9 @@
 without LAS rescoring).
 
 Reads a model bundle (``train/bundle.py``), decodes a wav.scp with features
-computed on the device, optionally with n-gram FST shallow fusion
+computed on the device (or, with ``--loader utt``, a feats.scp/.ark of
+precomputed features, spliced, strided and normalized on the host),
+optionally with n-gram FST shallow fusion
 (``--fst_lm``: an ARPA LM, a binary OpenFst or an AT&T text FST), writes the
 N-best hypotheses in the reference's format, then reranks and, given
 references, scores the WER:
@@ -11,9 +13,11 @@ references, scores the WER:
         --ref_labels ark:label.txt --beam_size 8 --n_best 8 \\
         --fst_lm lm.arpa --symbols_map units.txt --fst_lm_scale 0.5
 
-The decode runs on the card unless ``--device cpu``.  Batches are padded
-to ``--batch_size`` rows of ``--max_wav_seconds``, so one shape (one CUDA
-graph of the search) serves the run.
+The decode runs on the card unless ``--device cpu``.  Waveform batches are
+padded to ``--batch_size`` rows of ``--max_wav_seconds``, so one shape (one
+CUDA graph of the search) serves the run; feature batches are padded to
+the loader's frame buckets.  ``--attn_chunk`` overrides the bundle's
+encoder attention chunking.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from pika_tpu_torch.data import segment as seg
 from pika_tpu_torch.data.scp import read_int_vectors, read_symbol_table, read_wav_scp
 from pika_tpu_torch.data.wavio import read_wav
-from pika_tpu_torch.decode.beam import BeamConfig, beam_search_waveforms
+from pika_tpu_torch.decode.beam import BeamConfig, beam_search_features, beam_search_waveforms
 from pika_tpu_torch.decode.fst import compile_arpa, read_openfst_binary, read_text_fst
 from pika_tpu_torch.decode.rescore import rerank_nbest
 from pika_tpu_torch.decode.wer import score_wer
@@ -47,14 +51,15 @@ def build_parser():
     parser.add_argument("--device", type=str, default=None,
                         help="torch device of the decode (default: the CUDA card)")
     parser.add_argument("--loader", type=str, default="otf", choices=["otf", "utt"],
-                        help="otf: decode raw audio with on-device features; utt "
-                             "(precomputed feature archives) is not ported yet")
+                        help="otf: decode raw audio with on-device features; utt: "
+                             "decode precomputed feature archives (wav_scp is then a "
+                             "feats.scp or .ark)")
     parser.add_argument("--symbols_map", type=str, default=None)
     parser.add_argument("--ref_labels", type=str, default=None,
                         help="label.txt for WER scoring")
     parser.add_argument("--attn_chunk", type=int, default=-1,
                         help="override the bundle's encoder attention chunking (-1 keeps "
-                             "it, 0 forces full attention; > 0 is not ported yet)")
+                             "it, 0 forces full attention, > 0 query blocks of this size)")
     parser.add_argument("--beam_size", type=int, default=8)
     parser.add_argument("--n_best", type=int, default=8)
     parser.add_argument("--blk", type=int, default=0)
@@ -118,8 +123,6 @@ def _check_ported(args) -> None:
         (bool(args.las_rescorer_model or args.las_rescorer_bw_model or args.las_scale_sweep),
          "--las_rescorer_model, --las_rescorer_bw_model and --las_scale_sweep (LAS "
          "rescoring): ROADMAP Queue 1 item 6"),
-        (args.loader == "utt", "--loader utt (precomputed features): ROADMAP Queue 1 item 3"),
-        (args.attn_chunk > 0, "--attn_chunk > 0 (chunked attention): ROADMAP Queue 1 item 3"),
     ]
     for hit, what in unported:
         if hit:
@@ -160,6 +163,46 @@ def load_fst(args, vocab_size: int, device: torch.device):
     return fst_tables, tables.start
 
 
+def _feats_chunk_stream(args, bsz):
+    """Batches of precomputed features (``--loader utt``): spliced and
+    strided by the loader, edge-padded to ``--min_len`` frames, CMN and
+    CMVN applied on the host; a short last batch is filled with rows of
+    zeros.  Yields (uttids, feats, lens, audio seconds)."""
+    from pika_tpu_torch.data.cmvn import CmvnStats, offset_scale
+    from pika_tpu_torch.data.feats_loader import FeatsLoaderConfig, feats_dataloader
+    from pika_tpu_torch.data.loader import prefetch_iter
+
+    fbc = common.fbank_from_args(args)
+    offset = scale = None
+    if args.cmvn_stats:
+        stats = CmvnStats.read(args.cmvn_stats)
+        offset, scale = offset_scale(stats.stats, splice_copies=args.lctx + 1 + args.rctx)
+    fl_cfg = FeatsLoaderConfig(batch_size=bsz, lctx=args.lctx, rctx=args.rctx,
+                               stride=args.stride, max_len=args.max_len)
+
+    def gen():
+        for b in feats_dataloader(args.wav_scp, None, fl_cfg):
+            feats, lens = b["feats"], b["feat_lens"]
+            if args.min_len > 0:
+                # the bucket padding repeats the last frame, so raising the
+                # length is the edge pad
+                lens = np.minimum(np.maximum(lens, args.min_len),
+                                  feats.shape[1]).astype(np.int32)
+            if args.cmn:
+                feats = feats - feats.mean(axis=1, keepdims=True)
+            if offset is not None:
+                feats = (feats + offset) * scale
+            if feats.shape[0] < bsz:
+                pad = bsz - feats.shape[0]
+                feats = np.pad(feats, ((0, pad), (0, 0), (0, 0)))
+                lens = np.pad(lens, (0, pad), constant_values=1)
+            audio = (float(np.sum(lens[:len(b["uttids"])])) * args.stride * fbc.frame_shift
+                     / fbc.sample_frequency)
+            yield b["uttids"], feats.astype(np.float32), lens.astype(np.int32), audio
+
+    yield from prefetch_iter(gen(), size=2)
+
+
 def _chunk_stream(uttids, make_chunk, bsz):
     """Read the next batch's wavs on a thread while the device decodes.  A
     producer's exception is re-raised on the consumer (a bad wav aborts the
@@ -188,9 +231,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
     device = resolve_device(args.device)
-    # --attn_chunk 0 forces full attention (> 0 raised above)
     model, _ = load_bundle(args.model, device,
-                           **({"attn_chunk": 0} if args.attn_chunk == 0 else {}))
+                           **({"attn_chunk": args.attn_chunk} if args.attn_chunk >= 0 else {}))
     args.spec_augment = False
     args.max_freq_span = args.max_time_span = 0
     featurizer, _, max_samples = common.featurizer_from_args(args, spec_augment=False,
@@ -211,7 +253,7 @@ def main(argv=None):
 
     sym_map = read_symbol_table(args.symbols_map) if args.symbols_map else None
     bsz = args.batch_size
-    scp = read_wav_scp(args.wav_scp)
+    scp = read_wav_scp(args.wav_scp) if args.loader == "otf" else None
     min_samples = 0
     if args.min_len > 0:
         # frames = 1 + (n - frame_len) // shift, inverted for min_len
@@ -240,12 +282,16 @@ def main(argv=None):
     n_utts = 0
     total_audio = 0.0
     with open(args.output_file, "w", encoding="utf-8") as out_f:
-        for chunk, wavs, lens, audio in _chunk_stream(list(scp), make_chunk, bsz):
+        chunks = (_chunk_stream(list(scp), make_chunk, bsz) if scp is not None
+                  else _feats_chunk_stream(args, bsz))
+        for chunk, x, lens, audio in chunks:
             total_audio += audio
             n_utts += len(chunk)
-            out = beam_search_waveforms(model, featurizer, torch.from_numpy(wavs).to(device),
-                                        torch.from_numpy(lens).to(device), cfg, fst_tables,
-                                        fst_start)
+            x, lens = torch.from_numpy(x).to(device), torch.from_numpy(lens).to(device)
+            if scp is not None:
+                out = beam_search_waveforms(model, featurizer, x, lens, cfg, fst_tables, fst_start)
+            else:
+                out = beam_search_features(model, x, lens, cfg, fst_tables, fst_start)
             host = {k: out[k].cpu().numpy() for k in ("tokens", "lens", "scores")}
             best_idx, _ = rerank_nbest(host["scores"], host["lens"], rnnt_scale=args.rnnt_score_scale)
             for i, uttid in enumerate(chunk):

@@ -46,7 +46,10 @@ class Optimizer:
     """An optimizer stack over ``params``: optional inf-norm clipping, then
     the update with the learning rate ``schedule(n)`` for update n (from 0).
 
-    ``step()`` applies one update from the parameters' ``.grad``.
+    ``step()`` applies one update from the parameters' ``.grad``;
+    ``state_dict()`` / ``load_state_dict()`` carry the wrapped optimizer's
+    state (momentum buffers, Adam moments) and ``count``, the schedule's
+    step, so a restored optimizer continues both where they were.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], optim: str,
@@ -67,6 +70,13 @@ class Optimizer:
             self.opt = torch.optim.Adadelta(self.params, lr=lr0, rho=0.9, eps=1e-6)
         else:
             raise ValueError(f"unknown optimizer {optim}")
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["optimizer"])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)

@@ -1,0 +1,384 @@
+"""RNN-T training CLI (port of ``pika_tpu/train/train_transducer.py``,
+``--dp_mode sync`` on one card):
+
+    python -m pika_tpu_torch.train.train_transducer DATA_LST LOG OUTPUT_DIR \\
+        --encoder_type transformer --decoder_type rnn --rnn_size 1024 ... \\
+        --dp_mode sync [--device cpu]
+
+It takes the JAX CLI's command lines (``egs/train_transducer.sh``) and runs
+on the card unless ``--device`` names another.  Per epoch: batches from the
+otf loader (``data/loader.py``) or, with ``--loader utt``, from precomputed
+features (``data/feats_loader.py``), stacked and pinned on a prefetch thread
+and copied to the card ``non_blocking`` on the main thread (all CUDA work
+stays there); one train step each (``train/step.py``) with the epoch's
+``torch.Generator`` (seeded ``--seed + epoch``); the losses stay on the
+device and are read every 8 steps with the NaN check.  After each saving
+epoch, a full-state checkpoint (``ckpt/<epoch>/``, ``train/checkpoint.py``)
+and a model bundle (``model.epoch.N``, ``train/bundle.py``, which the
+decode CLI reads); ``--resume`` continues from the newest checkpoint.  The
+log lines are the JAX CLI's.
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP Queue 1
+item: ``--dp_mode`` bmuf/blockadam/bmufadam, more than one process or card
+(item 7), ``--pruned_loss_range > 0`` (item 8), ``--encoder_type rnn`` and
+``--decoder_type transformer`` (item 9), ``--brnn`` (item 6).
+``--steps_per_dispatch`` is accepted and has no effect.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import itertools
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from pika_tpu_torch.data.loader import dataloader, prefetch_iter
+from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
+from pika_tpu_torch.train import common
+from pika_tpu_torch.train.bundle import load_bundle, save_bundle
+from pika_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from pika_tpu_torch.train.step import make_eval_step, make_train_step
+from pika_tpu_torch.utils.logger import Logger
+
+DRAIN_EVERY = 8  # steps between reads of the device-side losses
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Transducer training")
+    parser.add_argument("data_lst", type=str, help="list of mrk, seq, ali files for data")
+    parser.add_argument("log", type=str, help="log file for the job")
+    parser.add_argument("output_dir", type=str, help="path to save models")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device of the training (default: the CUDA card)")
+    common.add_loader_args(parser)
+    common.add_model_args(parser)
+    common.add_train_args(parser)
+    parser.add_argument("--valid_data_lst", type=str, default=None,
+                        help="held-out data list; evaluated after each epoch")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest full-state checkpoint in output_dir "
+                             "(params + optimizer state + epoch)")
+    parser.add_argument("--save_every_n_batches", type=int, default=0,
+                        help="periodic temp bundle output_dir/model.tmp (0 = per-epoch only)")
+    common.add_utt_loader_args(parser)
+    return parser
+
+
+def check_ported(args) -> None:
+    """The flags whose paths are not ported raise, naming their ROADMAP
+    item, instead of being ignored.  With ``--init_model`` the bundle's
+    configuration replaces the model flags (as in the JAX CLI), and loading
+    it raises on the unported model types."""
+    fresh = not args.init_model
+    unported = [
+        (args.dp_mode != "sync",
+         f"--dp_mode {args.dp_mode} (BMUF and the block strategies): ROADMAP Queue 1 item 7"),
+        (args.num_processes > 1 or bool(args.coordinator_address),
+         "--num_processes > 1 and --coordinator_address (multi-host): ROADMAP Queue 1 item 7"),
+        ((args.num_devices or 1) > 1,
+         "--num_devices > 1 (data parallelism over cards): ROADMAP Queue 1 item 7"),
+        (args.pruned_loss_range > 0,
+         "--pruned_loss_range > 0 (the pruned loss): ROADMAP Queue 1 item 8"),
+        (fresh and args.brnn, "--brnn (the bidirectional LSTM): ROADMAP Queue 1 item 6"),
+        (fresh and args.encoder_type == "rnn", "--encoder_type rnn: ROADMAP Queue 1 item 9"),
+        (fresh and args.decoder_type == "transformer",
+         "--decoder_type transformer (the transformer prediction net): ROADMAP Queue 1 item 9"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def make_model(args, input_dim: int, device: torch.device):
+    """(model, config): from ``--init_model`` (a port bundle, whose
+    configuration wins, as in the JAX CLI) or fresh from ``--seed``."""
+    if args.init_model:
+        model, _ = load_bundle(args.init_model, device)
+        return model, model.config
+    cfg = TransducerConfig(
+        input_dim=input_dim, vocab_size=args.output_dim, hid_dim=args.rnn_size,
+        encoder_type="tdnn_transformer", decoder_type="rnn", enc_layers=args.enc_layers,
+        dec_layers=args.dec_layers, embd_dim=args.embd_dim, dropout=args.dropout,
+        brnn=args.brnn, tdnn_nhid=args.tdnn_nhid, tdnn_layers=args.tdnn_layers,
+        tdnn_transformer_dropout=args.tdnn_transformer_dropout, remat=args.remat,
+        attn_chunk=args.attn_chunk, attn_cheap_dropout=common.resolve_cheap_dropout(args))
+    return init_transducer(cfg, torch.Generator(device).manual_seed(args.seed), device), cfg
+
+
+def feats_batch_stream(args, batch_size: int, epoch: int, shuffle=True, required=True):
+    """Precomputed-feature batches (``--loader utt``); ragged tails dropped."""
+    from pika_tpu_torch.data.feats_loader import FeatsLoaderConfig, feats_dataloader
+
+    cfg = FeatsLoaderConfig(
+        batch_size=batch_size, lctx=args.lctx, rctx=args.rctx, stride=args.stride,
+        max_len=args.max_len, reverse_labels=args.reverse_labels, pad_label=args.padding_tgt,
+        sos=args.SOS, eos=args.EOS, shuffle_buffer=args.buffer_size if shuffle else 0,
+        seed=args.seed + 1000 * epoch)
+    n_yielded = n_dropped = 0
+    for b in feats_dataloader(args.data_lst, args.ali_rspec, cfg):
+        if len(b["uttids"]) == batch_size:
+            n_yielded += 1
+            yield b
+        else:
+            n_dropped += len(b["uttids"])
+    if n_dropped:
+        print(f"feats_batch_stream: dropped {n_dropped} tail utterances "
+              f"(< batch_size {batch_size})", file=sys.stderr)
+    if n_yielded == 0 and required:
+        raise RuntimeError(
+            f"feats_batch_stream: epoch produced 0 full batches "
+            f"(batch_size {batch_size}, {n_dropped} utterances dropped) — "
+            f"is the corpus smaller than the global batch?")
+    if n_yielded == 0:
+        print(f"feats_batch_stream: 0 full batches (batch_size "
+              f"{batch_size}); skipping", file=sys.stderr)
+
+
+def batch_stream(args, loader_cfg, epoch: int, noise=None, rir=None, required=True):
+    """Merged stream over the (WORKER-ID-expanded) data lists, each loader
+    seeded ``seed + 1000 * epoch + list``; ragged tail batches dropped."""
+    if args.loader == "utt":
+        yield from feats_batch_stream(args, loader_cfg.batch_size, epoch,
+                                      shuffle=loader_cfg.augment, required=required)
+        return
+    lists = common.expand_worker_lists(args.data_lst, args.num_devices or 1)
+    streams = [dataloader(lst, dataclasses.replace(loader_cfg,
+                                                   seed=loader_cfg.seed + 1000 * epoch + i),
+                          noise=noise, rir=rir)
+               for i, lst in enumerate(lists)]
+    expected = loader_cfg.batch_size
+    n_yielded = n_dropped = 0
+    for batches in itertools.zip_longest(*streams):
+        for b in batches:
+            if b is not None and len(b["uttids"]) == expected:
+                n_yielded += 1
+                yield b
+            elif b is not None:
+                n_dropped += len(b["uttids"])
+    if n_dropped:
+        print(f"batch_stream: dropped {n_dropped} tail utterances "
+              f"(< batch_size {expected})", file=sys.stderr)
+    if n_yielded == 0 and required:
+        raise RuntimeError(
+            f"batch_stream: epoch produced 0 full batches (batch_size "
+            f"{expected}, {n_dropped} utterances dropped) — is the corpus "
+            f"smaller than the global batch?")
+    if n_yielded == 0:
+        print(f"batch_stream: 0 full batches (batch_size {expected}); "
+              f"skipping", file=sys.stderr)
+
+
+def host_batch(batch, pin: bool) -> dict:
+    """A loader batch as CPU tensors, pinned for a ``non_blocking`` copy
+    when ``pin``.  Waveforms travel as int16 (the loader's values are
+    integral; the featurizer promotes them)."""
+    out = {}
+    for k, v in batch.items():
+        if k == "uttids":
+            continue
+        if k == "wavs":
+            v = np.clip(v, -32768, 32767).astype(np.int16)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory() if pin else t
+    return out
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _host_copy(state):
+    """A CPU copy of a (nested) state dict, safe to write from a thread
+    while training goes on."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().to("cpu", copy=True)
+    if isinstance(state, dict):
+        return {k: _host_copy(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_host_copy(v) for v in state]
+    return copy.deepcopy(state)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    device = resolve_device(args.device)
+    common.resolve_rng_impl(args, device)
+    with open(args.log.replace("WORKER-ID", "0"), "w") as log_f:
+        train(args, device, log_f)
+
+
+def train(args, device: torch.device, log_f) -> None:
+    """The run of ``main`` after parsing, logging to ``log_f``."""
+    pin = device.type == "cuda"
+
+    if args.loader == "utt":
+        if not args.ali_rspec:
+            sys.exit("--loader utt requires --ali_rspec (ark:label.txt)")
+        featurizer, input_dim = common.feats_featurizer_from_args(args, device=device)
+    else:
+        featurizer, input_dim, _ = common.featurizer_from_args(args, device=device)
+    model, cfg = make_model(args, input_dim, device)
+    optimizer = common.optimizer_from_args(args, model.parameters())
+    loader_cfg = common.loader_cfg_from_args(args)
+    noise = common.load_noise_segments(args.noise_lst)
+    rir = common.load_noise_segments(args.rir_lst)
+
+    num_param = sum(p.numel() for p in model.parameters())
+    log_f.write("*" * 60 + "\n")
+    log_f.write(
+        f"model: transducer  input dim: {input_dim}\toutput dim: {args.output_dim}\n"
+        f"hidden dim: {args.rnn_size}\tenc_layers: {args.enc_layers}\n"
+        f"dec_layers: {args.dec_layers}\tdevices: 1 ({args.dp_mode})\n"
+        f"model size: {num_param / 1e6:.2f} M\n")
+    log_f.write("*" * 60 + "\n")
+    log_f.flush()
+
+    start_epoch = 0
+    ckpt_dir = f"{args.output_dir}/ckpt"
+    if args.resume:
+        try:
+            state = restore_checkpoint(ckpt_dir, map_location=device)
+            model.load_state_dict(state["model"])
+            optimizer.load_state_dict(state["optimizer"])
+            start_epoch = int(state["metadata"].get("epoch", -1)) + 1
+            log_f.write(f"resumed from epoch {start_epoch - 1} (optimizer state included)\n")
+        except FileNotFoundError:
+            log_f.write("no checkpoint found; starting fresh\n")
+
+    backend = "plain" if args.loss_backend == "xla" else "auto"
+    cdt = torch.bfloat16 if args.compute_dtype == "bfloat16" else None
+    step = make_train_step(model, optimizer, featurizer, loss_chunk=args.loss_chunk,
+                           loss_backend=backend, compute_dtype=cdt)
+    utt_box = [0]  # utterances consumed this epoch, for the epoch summary
+
+    def run_epoch(epoch):
+        logger = Logger(log_f, args.log_per_n_frames, ["Loss"])
+        generator = torch.Generator(device).manual_seed(args.seed + epoch)
+        pending = []  # device metrics, read every DRAIN_EVERY steps (no per-step sync)
+
+        def drain():
+            if not pending:
+                return
+            losses = torch.stack([m["loss"] for m in pending]).cpu().numpy()
+            labels = torch.stack([m["num_labels"] for m in pending]).cpu().numpy()
+            for loss_val, n_labels in zip(losses, labels):
+                loss_val = float(loss_val)
+                if loss_val != loss_val:
+                    log_f.write("NaN loss detected — stopping\n")
+                    sys.exit(1)
+                logger.update_and_log(int(n_labels), [loss_val])
+            pending.clear()
+
+        def pack(b):
+            return host_batch(b, pin), time.perf_counter()
+
+        waits, leads = [], []  # consumer blocking; how long a ready batch sat
+        n_batches = 0
+        it = iter(prefetch_iter(batch_stream(args, loader_cfg, epoch, noise, rir),
+                                transform=pack))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                host, t_ready = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            waits.append(t1 - t0)
+            leads.append(t1 - t_ready)
+            pending.append(step(to_device(host, device), generator))
+            utt_box[0] += loader_cfg.batch_size
+            n_batches += 1
+            if len(pending) >= DRAIN_EVERY:
+                drain()
+            if args.save_every_n_batches and n_batches % args.save_every_n_batches == 0:
+                drain()
+                save_bundle(f"{args.output_dir}/model.tmp", model)
+        if leads:
+            ahead = sum(1 for x in leads if x > 5e-3)
+            log_f.write(f"prefetch overlap: {ahead}/{len(leads)} batches pinned before "
+                        f"request; consumer wait total {sum(waits):.2f}s "
+                        f"(max {max(waits):.2f}s)\n")
+        drain()
+        logger.summarize_and_log()
+
+    eval_step = make_eval_step(model, featurizer) if args.valid_data_lst else None
+
+    def run_validation(epoch):
+        vcfg = dataclasses.replace(loader_cfg, augment=False)
+        vargs = copy.copy(args)
+        vargs.data_lst = args.valid_data_lst
+        tot_loss = tot_labels = 0.0
+        # a valid set smaller than the batch logs and skips
+        for batch in batch_stream(vargs, vcfg, 0, required=False):
+            m = eval_step(to_device(host_batch(batch, False), device))
+            tot_loss += float(m["loss"])
+            tot_labels += float(m["num_labels"])
+        log_f.write(f"===> Epoch {epoch} valid loss/label: "
+                    f"{tot_loss / max(tot_labels, 1.0):.4f} <===\n")
+        log_f.flush()
+
+    saver = {"thread": None, "error": None}
+
+    def join_saver():
+        """Wait for the saving thread; its failure fails the run."""
+        if saver["thread"] is not None:
+            saver["thread"].join()
+            saver["thread"] = None
+        if saver["error"] is not None:
+            raise RuntimeError("saving a checkpoint failed") from saver["error"]
+
+    def save(epoch):
+        """The epoch's checkpoint and bundle; with --async_save written on a
+        thread from a host copy taken here."""
+        join_saver()
+        snap = _host_copy if args.async_save else (lambda x: x)
+        model_state = snap(model.state_dict())
+        opt_state = snap(optimizer.state_dict())
+
+        def write():
+            save_checkpoint(ckpt_dir, epoch, model_state, opt_state, metadata={"epoch": epoch})
+            save_bundle(f"{args.output_dir}/model.epoch.{epoch}", model,
+                        metadata={"epoch": epoch}, state_dict=model_state)
+
+        def write_on_thread():
+            try:
+                write()
+            except Exception as exc:  # re-raised on the main thread by join_saver
+                saver["error"] = exc
+
+        if args.async_save:
+            saver["thread"] = threading.Thread(target=write_on_thread, daemon=False)
+            saver["thread"].start()
+        else:
+            write()
+
+    for epoch in range(start_epoch, args.num_epochs):
+        log_f.write(f"===> Epoch {epoch} <===\n")
+        log_f.flush()
+        utt_box[0] = 0
+        t_epoch = time.perf_counter()
+        run_epoch(epoch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t_epoch
+        log_f.write(f"===> Epoch {epoch} wall {dt:.1f}s, {utt_box[0]} utts, "
+                    f"{utt_box[0] / max(dt, 1e-9):.1f} utt/s <===\n")
+        log_f.flush()
+        if (epoch + 1) % max(args.save_interval, 1) == 0 or epoch == args.num_epochs - 1:
+            save(epoch)
+        if eval_step is not None:
+            run_validation(epoch)
+    join_saver()
+    log_f.write("Training Finished\n")
+
+
+if __name__ == "__main__":
+    main()

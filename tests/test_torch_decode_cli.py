@@ -16,6 +16,7 @@ import torch
 import pika_tpu.data as data_jax
 import pika_tpu.models.transformer as transformer_jax
 from pika_tpu.data import segment as segment_jax
+from pika_tpu.data.kaldi_ark import write_matrix_ark
 from pika_tpu.decode.rescore import rerank_nbest as rerank_jax
 from pika_tpu.decode.wer import edit_distance as edit_distance_jax, score_wer as score_wer_jax
 from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
@@ -110,20 +111,22 @@ def test_bundle_round_trip(corpus, tmp_path):
 
 
 def test_load_bundle_config_override(tmp_path):
-    """A bundle of a model with chunked attention raises (not ported) unless
-    loaded with ``attn_chunk=0``, the CLI's ``--attn_chunk 0`` (full
-    attention)."""
+    """A bundle of a model with chunked attention loads with its chunking,
+    or with the ``config`` fields given (the CLI's ``--attn_chunk 0``: full
+    attention); the weights are the same either way."""
     pt = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(1), device="cpu")
     path = save_bundle(str(tmp_path / "b"), pt)
     spec = json.loads((tmp_path / "b" / "model.json").read_text())
     spec["config"]["attn_chunk"] = 64
     (tmp_path / "b" / "model.json").write_text(json.dumps(spec))
-    with pytest.raises(NotImplementedError, match="attn_chunk"):
-        load_bundle(path, device="cpu")
+    chunked, _ = load_bundle(path, device="cpu")
+    assert chunked.config.attn_chunk == 64
+    assert chunked.encoder.transformer_0.self_attn.q_chunk == 64
     model, _ = load_bundle(path, device="cpu", attn_chunk=0)
     assert model.config.attn_chunk == 0
-    for x, y in zip(pt.state_dict().values(), model.state_dict().values()):
-        assert torch.equal(x, y)
+    for x, y, z in zip(pt.state_dict().values(), model.state_dict().values(),
+                       chunked.state_dict().values()):
+        assert torch.equal(x, y) and torch.equal(x, z)
 
 
 def test_read_wav_matches_jax(corpus, tmp_path):
@@ -291,8 +294,47 @@ def test_cli_fst_matches_jax(corpus, capsys, f32_attention, fusion):
 
 @pytest.mark.parametrize("flags,item", [
     (["--las_rescorer_model", "las"], "item 6"),
-    (["--las_rescorer_bw_model", "las"], "item 6"), (["--las_scale_sweep", "0.3:0.7"], "item 6"),
-    (["--loader", "utt"], "item 3"), (["--attn_chunk", "64"], "item 3")])
+    (["--las_rescorer_bw_model", "las"], "item 6"), (["--las_scale_sweep", "0.3:0.7"], "item 6")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         eval_main(["bundle", "wav.scp", "out.txt", "--device", "cpu", *flags])
+
+
+def test_cli_attn_chunk_matches_jax(corpus, capsys, f32_attention):
+    """``--attn_chunk 8`` (query blocks over the encoder's attention) in
+    both CLIs: the N-best files byte-identical and the same WER."""
+    d, _ = corpus
+    bundle = _port_bundle(d)
+    wer_ref = eval_main_jax([str(d / "jax_bundle"), str(d / "wav.scp"), str(d / "chunk_ref.txt"),
+                             *_flags(d), "--attn_chunk", "8"])
+    wer = eval_main([bundle, str(d / "wav.scp"), str(d / "chunk_got.txt"), "--device", "cpu",
+                     *_flags(d), "--attn_chunk", "8"])
+    capsys.readouterr()
+    assert wer == wer_ref
+    assert (d / "chunk_got.txt").read_bytes() == (d / "chunk_ref.txt").read_bytes()
+    assert any((d / "chunk_got.txt").read_text().splitlines())
+
+
+@pytest.mark.parametrize("extra", [[], ["--cmn", "--min_len", "30", "--stride", "2"]])
+def test_cli_loader_utt_matches_jax(corpus, capsys, f32_attention, extra):
+    """``--loader utt`` in both CLIs over one Kaldi feature archive (read
+    through its scp too): splice, stride, the --min_len edge pad, CMN and
+    CMVN on the host, then the beam; the N-best files byte-identical, the
+    same WER."""
+    d, _ = corpus
+    bundle = _port_bundle(d)
+    rng = np.random.default_rng(11)
+    feats = [(f"utt{i}", (rng.standard_normal((int(rng.integers(20, 70)), MEL)) * 2 + 10)
+              .astype(np.float32)) for i in range(N_UTTS)]
+    scp = write_matrix_ark(str(d / "feats.ark"), feats)
+    flags = ["--loader", "utt", "--feats_dim", str(MEL), "--batch_size", "4", "--beam_size", "4",
+             "--n_best", "4", "--max_symbols", "8", "--cmvn_stats", str(d / "cmvn.stats"),
+             "--ref_labels", f"ark:{d}/label.txt", *extra]
+    for src in (str(d / "feats.ark"), f"scp:{scp}"):
+        wer_ref = eval_main_jax([str(d / "jax_bundle"), src, str(d / "utt_ref.txt"), *flags])
+        wer = eval_main([bundle, src, str(d / "utt_got.txt"), "--device", "cpu", *flags])
+        capsys.readouterr()
+        assert wer == wer_ref
+        assert (d / "utt_got.txt").read_bytes() == (d / "utt_ref.txt").read_bytes()
+        lines = (d / "utt_got.txt").read_text().splitlines()
+        assert len(lines) == N_UTTS * 4 and any(lines)

@@ -648,3 +648,52 @@ def test_fst_walk_on_card_equals_cpu(cuda_device):
         *sets_cpu, lm_cpu = fst_advance_sets(cpu, *sets_cpu, labels, 6, 0.2)
         for a, b in zip(sets_dev + [lm_dev], sets_cpu + [lm_cpu]):
             assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# the training options on the card: remat with the card's generator, chunking
+# ---------------------------------------------------------------------------
+
+def test_remat_gradients_bit_for_bit_on_card(cuda_device):
+    """Remat on the card restores the CUDA generator's state (Philox seed
+    and offset) for the recomputation: with transformer dropout and the
+    head-shared chunked mask on, outputs, gradients and the generator's
+    later draws equal the run without remat, bit for bit (cuDNN pinned to
+    its deterministic algorithms, so that only remat could differ)."""
+    from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = torch.Generator(cuda_device).manual_seed(0)
+        x = torch.randn(2, 120, 24, generator=gen, device=cuda_device)
+        results = []
+        for remat in (False, True):
+            enc = TDNNTransformerEncoder(24, 16, 64, 6, transformer_dropout=0.3, attn_chunk=32,
+                                         remat=remat, device=cuda_device)
+            with torch.no_grad():
+                init = torch.Generator(cuda_device).manual_seed(1)
+                for p in enc.parameters():
+                    p.normal_(0, 0.2, generator=init)
+            g = torch.Generator(cuda_device).manual_seed(2)
+            xt = x.clone().requires_grad_()
+            out = enc.train()(xt, generator=g)
+            out.square().sum().backward()
+            results.append((out.detach(), xt.grad, [p.grad for p in enc.parameters()],
+                            torch.rand(8, generator=g, device=cuda_device)))
+        (o0, gx0, gp0, r0), (o1, gx1, gp1, r1) = results
+        assert torch.equal(o0, o1) and torch.equal(gx0, gx1) and torch.equal(r0, r1)
+        assert all(torch.equal(a, b) for a, b in zip(gp0, gp1))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_chunked_attention_matches_full_on_card(cuda_device):
+    """The query-blocked core on the card is the full core's function."""
+    x = torch.randn(2, 300, 64, generator=torch.Generator(cuda_device).manual_seed(0),
+                    device=cuda_device)
+    full = MultiHeadedAttention(4, 64, device=cuda_device)
+    chunked = MultiHeadedAttention(4, 64, q_chunk=64, device=cuda_device)
+    chunked.load_state_dict(full.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(chunked(x, x, x), full(x, x, x), rtol=1e-5, atol=1e-6)

@@ -506,10 +506,27 @@ def test_train_step_randomness_is_seeded(step_inputs):
 
 
 def test_unported_train_options_raise(step_inputs):
-    for kw in (dict(dropout=0.1), dict(attn_cheap_dropout=True), dict(remat=True)):
+    """LSTM dropout, the cheap attention dropout and remat, once raising in
+    train mode, now run there: eval mode is unchanged by them, train mode
+    draws from the generator (tests/test_torch_train_options.py holds them
+    to the JAX package); only the pruned loss's heads still raise."""
+    x = torch.randn(2, 64, 3 * MEL, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(1, 20, (2, 5), generator=torch.Generator().manual_seed(2))
+    base = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0),
+                           device="cpu")
+    with torch.no_grad():
+        ref = base.encode(x), base.predict(y)
+    for kw in (dict(dropout=0.1, dec_layers=2), dict(attn_cheap_dropout=True,
+                                                     tdnn_transformer_dropout=0.2),
+               dict(remat=True)):
         model = init_transducer(TransducerConfig(**dict(MODEL, **kw)),
                                 torch.Generator().manual_seed(0), device="cpu")
-        x = torch.zeros(1, 64, 3 * MEL)
-        model.encode(x)  # eval mode runs
-        with pytest.raises(NotImplementedError):
-            model.train().encode(x)
+        with torch.no_grad():
+            assert torch.equal(model.encode(x), ref[0]) and torch.equal(model.predict(y), ref[1])
+            model.train()
+            gen = torch.Generator().manual_seed(3)
+            enc, dec = model.encode(x, generator=gen), model.predict(y, generator=gen)
+        assert torch.isfinite(enc).all() and torch.isfinite(dec).all()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        init_transducer(TransducerConfig(**dict(MODEL, simple_joint=True)),
+                        torch.Generator().manual_seed(0), device="cpu")
