@@ -52,6 +52,33 @@ V=6268, random weights from a seed):
   at 8 x 20 s and 2 x 60 s exact and 2 x 60 s with remat and 512-row
   chunked attention (wall time, peak memory), one ``--loader utt`` epoch
   over a Kaldi feature ark, and the decode CLI on the trained bundle;
+* MBR fine-tuning on that corpus and bundle: the recipe's CLI
+  (``egs/train_transducer_mbr.sh``: batch 4, beam 4, ``--sm_scale 1.2``,
+  ``--rnnt_scale 0.02``, LR 2e-5 -> 5e-6, SpecAugment, 220 symbols) for 2
+  epochs over 36 utterances with ``model.tmp`` every 4 steps (the epoch
+  lines, peak memory, the beam loops it captured, K1-K3's launches), over
+  references that the bundle's own hypotheses resemble (the bundle, trained
+  on noise, emits to the 220-symbol cap: against the corpus' own labels
+  every hypothesis of an utterance has one edit distance and the MBR
+  weights are 0); then in process at 4 x 10 s of the corpus, with the
+  CLI's featurizer and optimizer: non-zero sequence weights and surrogate,
+  one step timed by stage through the step's own stage hook (decode, edit
+  distance, loss forward + backward, optimizer), one launch each of K1, K2
+  and K3 per step, the graphed N-best after an update against the eager
+  loop, the objective, its RNN-T term and each parameter's gradient on
+  the kernels against the plain loss backend, the surrogate's share of the
+  gradient, and the surrogate (the alignment paths' gather, the blank
+  steps' 1/T' weights, the sm_scale joint) and its gradients on the card
+  against the CPU;
+* the LAS rescorer on the same corpus with the bundle as its frozen shared
+  encoder: the recipe's CLI (``egs/train_las_rescorer.sh``: rnn 1024, 2 + 2
+  layers, mlp attention, V 6269, batch 8, Adam 1e-4, sampling 0.1) one
+  epoch forward and one with ``--reverse_labels``; the decode CLI on 8
+  synthetic 10 s wavs (beam 8, n_best 8) without the rescorers, then with
+  both and ``--output_scores``, the rerank CLI on its N-best (the CLI's
+  best hypotheses), the rescoring of the 8 x 8 hypotheses timed and
+  profiled at their length and cut to 32 labels, and ``las_score_hyps`` on
+  the card against the CPU (2 x 4 hypotheses);
 * the flash-attention path (``attn_flash=True``), whose encoder attention
   runs through K4: K4 forward and backward against their plain versions at
   ragged shapes, at the three encoder layers' shapes (B = 8 and 32) and at
@@ -116,6 +143,8 @@ from pika_tpu_torch.decode.fst import (
     init_state_sets,
 )
 from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager, greedy_decode_waveforms
+from pika_tpu_torch.decode.rerank import main as rerank_main
+from pika_tpu_torch.decode.rescore import las_score_hyps
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.ops import cuda_build
@@ -145,10 +174,21 @@ from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_occupancy,
 )
 from pika_tpu_torch.features.fbank import make_fbank_fn
-from pika_tpu_torch.train.bundle import save_bundle
+from pika_tpu_torch.train import common as cli_common
+from pika_tpu_torch.train.bundle import load_bundle, save_bundle
 from pika_tpu_torch.train.checkpoint import restore_checkpoint
+import pika_tpu_torch.train.eval_transducer as eval_module
 from pika_tpu_torch.train.eval_transducer import main as eval_main
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
+from pika_tpu_torch.train.mbr import (
+    make_mbr_step,
+    mbr_decode,
+    mbr_losses,
+    mbr_risk,
+    mbr_surrogate,
+)
+from pika_tpu_torch.train.train_las import main as las_main
+from pika_tpu_torch.train.train_mbr import build_parser as mbr_parser, main as mbr_main
 from pika_tpu_torch.train.train_transducer import main as train_main
 from pika_tpu_torch.train.step import (
     FeaturizerConfig,
@@ -197,6 +237,11 @@ TIMED_STEPS = 3
 # statistics to 1e-4
 STEP_LOSS_RTOL = 1e-5
 STEP_TOL, STEP_ENCODER_TOL, STATS_TOL = 1e-2, 1e-1, 1e-4
+# a gradient leaf whose largest entry is below this share of the whole
+# gradient's largest is zero to rounding (hold_gradients): at the flagship
+# width the key biases' gradients (softmax ignores them) come to 1e-6 of
+# the largest entry, the smallest real leaf (gate_y.weight) to 2.4e-4
+ZERO_GRAD = 1e-4
 FLAGSHIP = dict(input_dim=240, vocab_size=VOCAB, hid_dim=1024, encoder_type="tdnn_transformer",
                 decoder_type="rnn", enc_layers=9, dec_layers=2, embd_dim=100, tdnn_nhid=1024,
                 tdnn_layers=9)
@@ -256,6 +301,47 @@ BF16_FIRST_RTOL = 2e-2
 # recipe's largest bucket (8 x 20 s), and 2 x 60 s exact and with the
 # recipe's long-utterance levers
 LONG_STEPS = ((8, 20, 50, {}), (2, 60, 150, {}), (2, 60, 150, {"remat": True, "attn_chunk": 512}))
+# the MBR phase: the recipe's command line (egs/train_transducer_mbr.sh:13-25)
+# on the training CLI's bundle, over the first MBR_UTTS utterances of its
+# corpus (about 8 batches of 4 an epoch over the 5, 10 and 15 s buckets), 2
+# epochs, model.tmp every 4 steps; the in-process step at MBR_BATCH x 10 s,
+# MBR_LABELS labels where the bundle's hypothesis is empty
+MBR_FLAGS = ["--initial_lr", "2e-5", "--final_lr", "5e-6", "--grad_clip", "3.0",
+             "--momentum", "0.9", "--num_epochs", "2", "--num_batches_per_epoch", "20000",
+             "--batch_size", "4", "--output_dim", str(VOCAB), "--lctx", "1", "--rctx", "1",
+             "--stride", "1", "--beam_size", "4", "--sm_scale", "1.2", "--rnnt_scale", "0.02",
+             "--spec_augment", "--decode_max_symbols", "220", "--tmp_save_batches", "4"]
+MBR_UTTS, MBR_BATCH, MBR_LABELS = 36, 4, 25
+MBR_BEAM = BeamConfig(beam_size=4, n_best=4, sm_scale=1.2, max_symbols=220, prune_dups=False,
+                      mm_dtype="auto")
+# the MBR surrogate on the card against the CPU, float32 with TF32 off on
+# both (sums in another order over 1024-wide products, 6268-way softmaxes
+# and 220 LSTM steps): the weights of an utterance sum to 0 over similar
+# paths, so the value and its gradient cancel (to 3e-5 and about 1e-3 of
+# their terms' sizes at the flagship width); each is held within this share
+# of the surrogate under |weights|, whose terms do not cancel: the value
+# against that value, each gradient's L2 difference against that
+# gradient's L2 norm
+SURROGATE_RTOL = 1e-4
+# the LAS phase: the recipe's command line (egs/train_las_rescorer.sh:15-27)
+# at its width on the training CLI's bundle as the shared encoder, one epoch
+# forward and one with --reverse_labels over the training corpus
+LAS_VOCAB = VOCAB + 1  # the labels and EOS 6268; pad 6269
+LAS_FLAGS = ["--SOS", "0", "--EOS", str(VOCAB), "--padding_tgt", str(LAS_VOCAB),
+             "--padding_idx", str(LAS_VOCAB), "--output_dim", str(LAS_VOCAB),
+             "--enc_layers", "2", "--dec_layers", "2", "--rnn_size", "1024", "--embd_dim", "100",
+             "--global_attention", "mlp", "--optim", "adam", "--initial_lr", "1e-4",
+             "--final_lr", "1e-5", "--num_epochs", "1", "--num_batches_per_epoch", "20000",
+             "--batch_size", "8", "--lctx", "1", "--rctx", "1", "--stride", "1",
+             "--sampling_decoder", "--sampling_prob", "0.1", "--increase_sampling_prob_epoch", "2"]
+# las_score_hyps on the card against the CPU: 2 utterances x 4 hypotheses,
+# float32 with TF32 off on both (sums in another order over 1024-wide
+# products and 6269-way softmaxes)
+LAS_RTOL = 1e-4
+# the rescoring also timed with the N-best cut to this many labels: a
+# trained model's length for 10 s at the corpus' 2.5 labels a second, with
+# room for the beam's spread
+RESCORE_CUT = 32
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -703,24 +789,26 @@ def write_cli_corpus(work: str, device) -> dict:
     return paths
 
 
-def cli_run(what: str, argv: list, log: str) -> tuple[list, float, float]:
-    """``train_main(argv)`` in process; prints the log's epoch lines and
-    returns (the log's lines, wall seconds, peak device memory in GiB)."""
+def cli_run(what: str, argv: list, log: str, main=None) -> tuple[list, float, float]:
+    """A training CLI's ``main(argv)`` in process (the transducer CLI's
+    unless ``main`` is given); prints the log's epoch lines and returns (the
+    log's lines, wall seconds, peak device memory in GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    train_main(argv)
+    (main or train_main)(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with open(log) as f:
         lines = f.read().splitlines()
     for line in lines:
-        if line.startswith(("===>", "resumed", "prefetch", "Finished")):
+        if line.startswith(("===>", "resumed", "prefetch", "Finished", "MBR ", "LAS ")):
             say(f"{what}: {line}")
     say(f"{what}: {secs:.3f} s in all, peak memory {peak:.3f} GiB")
     check(lines[-1] == "Training Finished", f"{what} finished")
-    losses = [float(x) for line in lines for x in re.findall(r"Overall Avg Loss: (\S+)", line)]
+    losses = [float(x) for line in lines
+              for x in re.findall(r"Overall Avg [A-Z ]*Loss: (\S+)", line)]
     check(len(losses) > 0 and all(math.isfinite(x) for x in losses), f"{what} losses {losses}")
     return lines, secs, peak
 
@@ -795,115 +883,579 @@ def long_train_steps(device) -> None:
         torch.cuda.empty_cache()
 
 
-def train_cli_path(device) -> dict:
+def train_cli_path(device, work: str) -> tuple[dict, dict]:
     """The training CLI (``train/train_transducer.py``) in process on a
     seeded corpus at the flagship width with the recipe's flags: 2 epochs
     with validation and bundles, a resume to a third epoch (the restored
     momentum and schedule step against the saved ones), one bf16 epoch
     (its first batch against float32's), the bf16 and float32 steps timed,
     the long-utterance steps, one --loader utt epoch and the decode CLI on
-    the trained bundle.  Returns K1-K3's launches over the first run."""
+    the trained bundle, all under ``work``.  Returns K1-K3's launches over
+    the first run, and the corpus' paths with the trained bundle
+    (``"bundle"``) for the second-stage phases."""
     t_phase = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="train_cli_")
+    paths = write_cli_corpus(work, device)
+    train_lst = os.path.join(paths["train"], "data.lst")
+    common = [*CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS, "--feat_config", paths["fbank"],
+              "--cmvn_stats", paths["stats"], "--device", str(device),
+              "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--log_per_n_frames", "1"]
+    exp = os.path.join(work, "exp")
+    log = os.path.join(work, "train.log")
+    reset_launches()
+    lines, _, _ = cli_run("train CLI", [train_lst, log, exp, *common,
+                                        "--num_epochs", str(CLI_EPOCHS), "--valid_data_lst",
+                                        os.path.join(paths["valid"], "data.lst")], log)
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    say(f"train CLI launches over {CLI_EPOCHS} epochs with validation: {launches}")
+    check(all(n > 0 for n in launches.values()), f"the CLI launched K1-K3: {launches}")
+    check(sum("valid loss/label" in x for x in lines) == CLI_EPOCHS, "validation lines")
+    for e in range(CLI_EPOCHS):
+        check(os.path.exists(os.path.join(exp, f"model.epoch.{e}", "model.pt")),
+              f"bundle model.epoch.{e}")
+    f32_first = first_batch_loss(lines)
+
+    # --resume to a third epoch: the optimizer the CLI restores against
+    # the saved state
+    saved = restore_checkpoint(os.path.join(exp, "ckpt"), CLI_EPOCHS - 1, map_location=device)
+    restored = []
+    load = Optimizer.load_state_dict
+
+    def recording_load(self, state):
+        load(self, state)
+        restored.append((self.count, [self.opt.state[p]["momentum_buffer"].clone()
+                                      for p in self.params]))
+
+    Optimizer.load_state_dict = recording_load
     try:
-        paths = write_cli_corpus(work, device)
-        train_lst = os.path.join(paths["train"], "data.lst")
-        common = [*CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS, "--feat_config", paths["fbank"],
-                  "--cmvn_stats", paths["stats"], "--device", str(device),
-                  "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--log_per_n_frames", "1"]
-        exp = os.path.join(work, "exp")
-        log = os.path.join(work, "train.log")
-        reset_launches()
-        lines, _, _ = cli_run("train CLI", [train_lst, log, exp, *common,
-                                            "--num_epochs", str(CLI_EPOCHS), "--valid_data_lst",
-                                            os.path.join(paths["valid"], "data.lst")], log)
-        launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
-                    "K3": joint_channels_bwd_w.launches}
-        say(f"train CLI launches over {CLI_EPOCHS} epochs with validation: {launches}")
-        check(all(n > 0 for n in launches.values()), f"the CLI launched K1-K3: {launches}")
-        check(sum("valid loss/label" in x for x in lines) == CLI_EPOCHS, "validation lines")
-        for e in range(CLI_EPOCHS):
-            check(os.path.exists(os.path.join(exp, f"model.epoch.{e}", "model.pt")),
-                  f"bundle model.epoch.{e}")
-        f32_first = first_batch_loss(lines)
-
-        # --resume to a third epoch: the optimizer the CLI restores against
-        # the saved state
-        saved = restore_checkpoint(os.path.join(exp, "ckpt"), CLI_EPOCHS - 1, map_location=device)
-        restored = []
-        load = Optimizer.load_state_dict
-
-        def recording_load(self, state):
-            load(self, state)
-            restored.append((self.count, [self.opt.state[p]["momentum_buffer"].clone()
-                                          for p in self.params]))
-
-        Optimizer.load_state_dict = recording_load
-        try:
-            lines, _, _ = cli_run("train CLI --resume", [
-                train_lst, os.path.join(work, "resume.log"), exp, *common,
-                "--num_epochs", str(CLI_EPOCHS + 1), "--resume"], os.path.join(work, "resume.log"))
-        finally:
-            Optimizer.load_state_dict = load
-        check(any(x.startswith(f"resumed from epoch {CLI_EPOCHS - 1}") for x in lines), "resumed")
-        count, moms = restored[0]
-        saved_moms = [saved["optimizer"]["optimizer"]["state"][i]["momentum_buffer"]
-                      for i in range(len(moms))]
-        check(count == saved["optimizer"]["count"] > 0,
-              f"schedule step restored: {count} vs saved {saved['optimizer']['count']}")
-        check(len(moms) == len(saved["optimizer"]["optimizer"]["state"]) > 0
-              and all(torch.equal(a, b) for a, b in zip(moms, saved_moms)),
-              "momentum buffers restored")
-        say(f"resume: schedule step {count} and {len(moms)} momentum buffers equal the saved "
-            f"ones: ok")
-
-        # one bf16 epoch from the same seed
-        bf16_log = os.path.join(work, "bf16.log")
-        lines, _, _ = cli_run("train CLI --compute_dtype bfloat16", [
-            train_lst, bf16_log, os.path.join(work, "exp_bf16"), *common, "--num_epochs", "1",
-            "--compute_dtype", "bfloat16"], bf16_log)
-        bf16_first = first_batch_loss(lines)
-        rel = abs(bf16_first - f32_first) / abs(f32_first)
-        say(f"first batch loss/label bf16 {bf16_first} vs float32 {f32_first}: rel {rel:.3e} "
-            f"(rtol {BF16_FIRST_RTOL})")
-        check(rel <= BF16_FIRST_RTOL, "bf16 first batch within tolerance of float32")
-        step_times(device)
-        long_train_steps(device)
-
-        # one --loader utt epoch over Kaldi arks of the training split
-        t0 = time.perf_counter()
-        ark = write_feature_ark(paths, device)
-        say(f"feature ark of the training split: {time.perf_counter() - t0:.3f} s")
-        utt_log = os.path.join(work, "utt.log")
-        cli_run("train CLI --loader utt", [
-            ark, utt_log, os.path.join(work, "exp_utt"), *common, "--num_epochs", "1",
-            "--loader", "utt", "--ali_rspec", f"ark:{os.path.join(paths['train'], 'label.txt')}",
-            "--feats_dim", "80"], utt_log)
-
-        # the decode CLI on the resumed run's last bundle
-        valid = paths["valid"]
-        err = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            wer = eval_main([os.path.join(exp, f"model.epoch.{CLI_EPOCHS}"),
-                             os.path.join(valid, "wav.scp"), os.path.join(work, "nbest.txt"),
-                             "--beam_size", str(BEAM), "--n_best", str(NBEST),
-                             "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1),
-                             "--feat_config", paths["fbank"], "--cmvn_stats", paths["stats"],
-                             "--ref_labels", f"ark:{os.path.join(valid, 'label.txt')}",
-                             "--device", str(device)])
-        with open(os.path.join(work, "nbest.txt")) as f:
-            n_lines = len(f.read().splitlines())
-        for line in err.getvalue().splitlines():
-            say(f"decode CLI on model.epoch.{CLI_EPOCHS}: {line}")
-        check(n_lines == CLI_UTTS["valid"] * NBEST and wer is not None,
-              f"decode CLI: {n_lines} N-best lines")
-        say(f"decode CLI: {time.perf_counter() - t0:.3f} s, {n_lines} N-best lines, WER "
-            f"{wer:.4f} (trained {CLI_EPOCHS + 1} epochs on noise: printed, not judged)")
+        lines, _, _ = cli_run("train CLI --resume", [
+            train_lst, os.path.join(work, "resume.log"), exp, *common,
+            "--num_epochs", str(CLI_EPOCHS + 1), "--resume"], os.path.join(work, "resume.log"))
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        Optimizer.load_state_dict = load
+    check(any(x.startswith(f"resumed from epoch {CLI_EPOCHS - 1}") for x in lines), "resumed")
+    count, moms = restored[0]
+    saved_moms = [saved["optimizer"]["optimizer"]["state"][i]["momentum_buffer"]
+                  for i in range(len(moms))]
+    check(count == saved["optimizer"]["count"] > 0,
+          f"schedule step restored: {count} vs saved {saved['optimizer']['count']}")
+    check(len(moms) == len(saved["optimizer"]["optimizer"]["state"]) > 0
+          and all(torch.equal(a, b) for a, b in zip(moms, saved_moms)),
+          "momentum buffers restored")
+    say(f"resume: schedule step {count} and {len(moms)} momentum buffers equal the saved "
+        f"ones: ok")
+
+    # one bf16 epoch from the same seed
+    bf16_log = os.path.join(work, "bf16.log")
+    lines, _, _ = cli_run("train CLI --compute_dtype bfloat16", [
+        train_lst, bf16_log, os.path.join(work, "exp_bf16"), *common, "--num_epochs", "1",
+        "--compute_dtype", "bfloat16"], bf16_log)
+    bf16_first = first_batch_loss(lines)
+    rel = abs(bf16_first - f32_first) / abs(f32_first)
+    say(f"first batch loss/label bf16 {bf16_first} vs float32 {f32_first}: rel {rel:.3e} "
+        f"(rtol {BF16_FIRST_RTOL})")
+    check(rel <= BF16_FIRST_RTOL, "bf16 first batch within tolerance of float32")
+    step_times(device)
+    long_train_steps(device)
+
+    # one --loader utt epoch over Kaldi arks of the training split
+    t0 = time.perf_counter()
+    ark = write_feature_ark(paths, device)
+    say(f"feature ark of the training split: {time.perf_counter() - t0:.3f} s")
+    utt_log = os.path.join(work, "utt.log")
+    cli_run("train CLI --loader utt", [
+        ark, utt_log, os.path.join(work, "exp_utt"), *common, "--num_epochs", "1",
+        "--loader", "utt", "--ali_rspec", f"ark:{os.path.join(paths['train'], 'label.txt')}",
+        "--feats_dim", "80"], utt_log)
+
+    # the decode CLI on the resumed run's last bundle
+    valid = paths["valid"]
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        wer = eval_main([os.path.join(exp, f"model.epoch.{CLI_EPOCHS}"),
+                         os.path.join(valid, "wav.scp"), os.path.join(work, "nbest.txt"),
+                         "--beam_size", str(BEAM), "--n_best", str(NBEST),
+                         "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1),
+                         "--feat_config", paths["fbank"], "--cmvn_stats", paths["stats"],
+                         "--ref_labels", f"ark:{os.path.join(valid, 'label.txt')}",
+                         "--device", str(device)])
+    with open(os.path.join(work, "nbest.txt")) as f:
+        n_lines = len(f.read().splitlines())
+    for line in err.getvalue().splitlines():
+        say(f"decode CLI on model.epoch.{CLI_EPOCHS}: {line}")
+    check(n_lines == CLI_UTTS["valid"] * NBEST and wer is not None,
+          f"decode CLI: {n_lines} N-best lines")
+    say(f"decode CLI: {time.perf_counter() - t0:.3f} s, {n_lines} N-best lines, WER "
+        f"{wer:.4f} (trained {CLI_EPOCHS + 1} epochs on noise: printed, not judged)")
+    paths["bundle"] = os.path.join(exp, f"model.epoch.{CLI_EPOCHS}")
     say(f"train CLI phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches, paths
+
+
+def decode_cli_best(argv: list) -> tuple[dict, list]:
+    """The decode CLI (``eval_main``) on ``argv`` (with --ref_labels);
+    returns its best hypothesis of each utterance (label strings) and its
+    stderr lines."""
+    best = {}
+    score_wer = eval_module.score_wer
+
+    def recording_score_wer(refs, hyps):
+        best.update(hyps)
+        return score_wer(refs, hyps)
+
+    eval_module.score_wer = recording_score_wer
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            eval_main(argv)
+    finally:
+        eval_module.score_wer = score_wer
+    return best, err.getvalue().splitlines()
+
+
+def resembling_ref(top: list, n: int) -> list:
+    """``n`` labels that the hypothesis ``top`` resembles, as a model at
+    20% WER sees its references: every s-th of its labels (s = len(top) //
+    n), the fifth, tenth, ... of those replaced.  An utterance's hypotheses
+    then have different edit distances to it, the top one the least."""
+    s = max(1, len(top) // max(n, 1))
+    ref = top[s - 1::s][:n]
+    return [t % (VOCAB - 1) + 1 if i % 5 == 4 else t for i, t in enumerate(ref)]
+
+
+def subset_archive(paths: dict, n: int, device) -> str:
+    """A data list over the first ``n`` training utterances: their wav.scp
+    through ``prep wav_to_seq`` in process, and a label file of references
+    that the bundle's own hypotheses resemble (``resembling_ref`` of the
+    top hypothesis of the MBR step's search, at each utterance's own label
+    count, so that the loader's label buckets and T x U limit hold)."""
+    d = os.path.join(os.path.dirname(paths["train"]), f"first{n}")
+    os.makedirs(d)
+    with open(os.path.join(paths["train"], "wav.scp")) as f:
+        lines = f.read().splitlines()[:n]
+    with open(os.path.join(d, "wav.scp"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        prep_main(["wav_to_seq", os.path.join(d, "wav.scp"), os.path.join(d, "a.mrk"),
+                   os.path.join(d, "a.seq"), "--device", str(device)])
+    own_file = os.path.join(paths["train"], "label.txt")
+    with open(own_file) as f:
+        own = {x.split()[0]: [int(t) for t in x.split()[1:]] for x in f.read().splitlines()}
+    best, _ = decode_cli_best([
+        paths["bundle"], os.path.join(d, "wav.scp"), os.path.join(d, "nbest.txt"),
+        "--beam_size", str(MBR_BEAM.beam_size), "--n_best", "1", "--sm_scale",
+        str(MBR_BEAM.sm_scale), "--max_symbols", str(MBR_BEAM.max_symbols),
+        "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1), "--feat_config", paths["fbank"],
+        "--cmvn_stats", paths["stats"], "--ref_labels", f"ark:{own_file}",
+        "--device", str(device)])
+    label_file = os.path.join(d, "label.txt")
+    with open(label_file, "w") as f:
+        for utt in (x.split()[0] for x in lines):
+            ref = resembling_ref([int(t) for t in best[utt]], len(own[utt])) or own[utt]
+            f.write(f"{utt} {' '.join(map(str, ref))}\n")
+    with open(os.path.join(d, "data.lst"), "w") as f:
+        for line in out.getvalue().splitlines():
+            mrk, seq = line.split()
+            f.write(f"{mrk} {seq} ark:{label_file}\n")
+    return os.path.join(d, "data.lst")
+
+
+def mbr_setup(device, paths: dict):
+    """The MBR CLI's own model, training featurizer (egs/fbank.conf, the
+    corpus' CMVN statistics, SpecAugment) and optimizer, from MBR_FLAGS on
+    the training CLI's bundle; returns (model, featurizer, optimizer)."""
+    args = mbr_parser().parse_args([
+        "data.lst", "log", "out", *MBR_FLAGS, "--init_model", paths["bundle"], "--feat_config",
+        paths["fbank"], "--cmvn_stats", paths["stats"], "--device", str(device)])
+    model, _ = load_bundle(paths["bundle"], device)
+    featurizer, _, _ = cli_common.featurizer_from_args(args, device=device)
+    return model, featurizer, cli_common.optimizer_from_args(args, model.parameters())
+
+
+def corpus_batch(paths: dict, device) -> dict:
+    """MBR_BATCH utterances of the CLI corpus' training split that last at
+    least SECONDS s, cut to SECONDS s, and their first MBR_LABELS labels:
+    the audio the bundle decodes in the CLI."""
+    with open(os.path.join(paths["train"], "label.txt")) as f:
+        labels = {x.split()[0]: [int(t) for t in x.split()[1:]] for x in f.read().splitlines()}
+    wavs, refs = [], []
+    with open(os.path.join(paths["train"], "wav.scp")) as f:
+        for utt, path in (x.split() for x in f.read().splitlines()):
+            pcm = read_wav(path)[0]
+            if len(pcm) >= SR * SECONDS and len(wavs) < MBR_BATCH:
+                wavs.append(pcm[:SR * SECONDS].astype(np.float32))
+                refs.append((labels[utt] + [0] * MBR_LABELS)[:MBR_LABELS])
+    check(len(wavs) == MBR_BATCH, f"{MBR_BATCH} corpus utterances of {SECONDS} s")
+    return {"wavs": torch.from_numpy(np.stack(wavs)).to(device),
+            "wav_lens": torch.full((MBR_BATCH,), SR * SECONDS, dtype=torch.int32, device=device),
+            "labels": torch.tensor(refs, dtype=torch.int32, device=device),
+            "label_lens": torch.full((MBR_BATCH,), MBR_LABELS, dtype=torch.int32, device=device)}
+
+
+def nbest_refs(nbest, batch: dict) -> dict:
+    """``batch`` with references that its N-best resembles: each
+    utterance's longest hypothesis (the best-scored of the longest) through
+    ``resembling_ref`` at its own length, so that the hypotheses' edit
+    distances differ also where the search stops after a label or two (the
+    batch's own labels where every hypothesis is empty)."""
+    longest = nbest["lens"].cpu().argmax(1).tolist()  # the first of the longest
+    tops = [nbest["tokens"][b, k, :nbest["lens"][b, k]].tolist() for b, k in enumerate(longest)]
+    own = [row[:n].tolist() for row, n in zip(batch["labels"].cpu(), batch["label_lens"].tolist())]
+    refs = [resembling_ref(t, len(t)) or o for t, o in zip(tops, own)]
+    u = max(map(len, refs))
+    like = dict(dtype=batch["labels"].dtype, device=batch["labels"].device)
+    return {**batch, "labels": torch.tensor([r + [0] * (u - len(r)) for r in refs], **like),
+            "label_lens": torch.tensor([len(r) for r in refs], **like)}
+
+
+def mbr_gradients(model, featurizer, batch: dict, nbest, backend: str, rnnt_scale: float):
+    """The MBR objective, its RNN-T term and its gradient (unclipped) on
+    ``backend`` for one decoded N-best, in train mode with generator seed 3
+    (the same dither, SpecAugment and dropout draws in every call), K1-K3's
+    launches; the running statistics are put back after the call."""
+    stats = {n: x.clone() for n, x in model.named_buffers()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    gen = torch.Generator(device=batch["wavs"].device).manual_seed(3)
+    feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"], gen)
+    total, metrics = mbr_losses(model, feats, feat_lens, batch["labels"], batch["label_lens"],
+                                nbest, rnnt_scale, MBR_BEAM.sm_scale, loss_backend=backend,
+                                generator=gen)
+    total.backward()
+    launches = [joint_channels.launches, joint_channels_bwd_in.launches,
+                joint_channels_bwd_w.launches]
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    with torch.no_grad():
+        for n, x in model.named_buffers():
+            x.copy_(stats[n])
+    model.eval()
+    return total.item(), metrics["rnnt_loss"].item(), grads, launches
+
+
+def hold_gradients(what: str, got: dict, ref: dict) -> None:
+    """Each parameter's gradient to ``ref``'s: relative L2 within
+    backend_parity's envelope (STEP_ENCODER_TOL in the encoder, STEP_TOL
+    elsewhere); a leaf whose reference gradient is zero to rounding (its
+    largest entry below ZERO_GRAD of the whole gradient's, such as the key
+    biases, which softmax ignores) must be so on both: its difference held
+    to ZERO_GRAD of the largest entry, absolute.  Prints those leaves and
+    the worst of the others."""
+    scale = max(g.abs().max().item() for g in ref.values())
+    zero, worst = [], []
+    for name, r in ref.items():
+        g = got[name]
+        if r.abs().max().item() < ZERO_GRAD * scale:
+            err, tol = (g - r).abs().max().item(), ZERO_GRAD * scale
+            zero.append((err / tol, err, tol, name, r.abs().max().item()))
+        else:
+            err = ((g - r).norm() / r.norm()).item()
+            tol = STEP_ENCODER_TOL if name.startswith("encoder.") else STEP_TOL
+            worst.append((err / tol, err, tol, name))
+    zero.sort(reverse=True)
+    worst.sort(reverse=True)
+    least = min((r.abs().max().item(), n) for n, r in ref.items()
+                if r.abs().max().item() >= ZERO_GRAD * scale)
+    say(f"{what}: {len(zero)} leaves zero to rounding (reference max < {ZERO_GRAD:g} x "
+        f"{scale:.4e}), max abs differences: " + ("; ".join(
+            f"{n} {e:.2e} (ref max {m:.2e}, tol {t:.2e})" for _, e, t, n, m in zero) or "none")
+        + f"; the least held leaf {least[1]} at {least[0] / scale:.2e} of the largest entry")
+    say(f"{what}: largest relative L2 errors (tol): "
+        + "; ".join(f"{n} {e:.2e} ({t:g})" for _, e, t, n in worst[:6]))
+    bad = max(zero[:1] + worst[:1])
+    check(bad[0] <= 1.0, f"{what}: {bad[3]} error {bad[1]} > tol {bad[2]}")
+
+
+def surrogate_parity(model, featurizer, batch: dict, nbest) -> None:
+    """``mbr_surrogate`` on the card against the CPU at the recipe width,
+    on one encoder output (a leaf: the eval featurizer and the model in
+    eval mode, so no draw differs), ``nbest`` and its sequence weights
+    against ``batch``'s references: the value and the gradients of the
+    prediction net, the joint and the encoder output within SURROGATE_RTOL
+    of the surrogate's under the weights' magnitudes (log-probs are at most
+    0, so that value is minus the sum of the terms' magnitudes)."""
+    seq_grad = mbr_risk(nbest, batch["labels"], batch["label_lens"])[2]
+    model.eval()
+    with torch.no_grad():
+        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+        enc = model.encode(feats, feat_lens)
+    with torch.device("meta"):
+        cpu_model = type(model)(model.config)
+    cpu_model = cpu_model.to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_model.eval()
+
+    def run(m, weights):
+        dev = next(m.parameters()).device
+        x = enc.detach().to(dev).requires_grad_()
+        paths = {key: nbest[key].to(dev) for key in ("tokens", "lens", "aligns", "align_lens")}
+        m.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        value = mbr_surrogate(m, x, paths, weights.to(dev), MBR_BEAM.sm_scale,
+                              blank=MBR_BEAM.blank)
+        value.backward()
+        grads = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+        grads["encoder output"] = x.grad.cpu()
+        m.zero_grad(set_to_none=True)
+        return value.item(), grads, time.perf_counter() - t0
+
+    v_card, g_card, t_card = run(model, seq_grad)
+    v_abs, g_abs, _ = run(model, seq_grad.abs())
+    v_cpu, g_cpu, t_cpu = run(cpu_model, seq_grad)
+    err = abs(v_card - v_cpu) / -v_abs
+    norm = lambda g: torch.cat([x.flatten() for x in g.values()]).norm().item()
+    say(f"MBR surrogate on the card vs the CPU ({t_card:.3f} s and {t_cpu:.3f} s): {v_card:.6f} "
+        f"vs {v_cpu:.6f}, difference {err:.3e} of the sum of the terms' magnitudes {-v_abs:.4f}"
+        f" (tol {SURROGATE_RTOL:g}); the gradient's norm {norm(g_cpu):.4e}, under |weights| "
+        f"{norm(g_abs):.4e}")
+    check(err <= SURROGATE_RTOL, "MBR surrogate on the card = the CPU's")
+    check(g_card.keys() == g_cpu.keys() and len(g_cpu) > 1, "MBR surrogate: the same gradients")
+    worst = sorted((((g_card[n] - r).norm() / g_abs[n].norm()).item(),
+                    ((g_card[n] - r).norm() / r.norm()).item(), n) for n, r in g_cpu.items())[::-1]
+    say(f"MBR surrogate gradient, card vs CPU, {len(worst)} tensors: largest L2 differences as "
+        f"a share of the gradient under |weights| (and of the gradient itself): " + "; ".join(
+            f"{n} {e:.2e} ({e_own:.2e})" for e, e_own, n in worst[:6]))
+    check(worst[0][0] <= SURROGATE_RTOL,
+          f"MBR surrogate gradient on the card = the CPU's: {worst[0][2]} {worst[0][0]:.3e}")
+
+
+def mbr_path(device, paths: dict) -> dict:
+    """The MBR recipe's CLI (2 epochs, the per-epoch lines, peak memory, the
+    captured beam loops, K1-K3's launches) on the training CLI's bundle
+    over references that its hypotheses resemble (``subset_archive``), then
+    in process at 4 x 10 s, with references that the N-best resembles
+    (``nbest_refs``): one step timed by stage, K1-K3 launches per step, the
+    graphed N-best after an update against the eager loop, and the
+    objective and gradients on the kernels against the plain loss backend,
+    the surrogate's share of the gradient, and the surrogate on the card
+    against the CPU (``surrogate_parity``).  Returns the CLI's K1-K3
+    launches."""
+    import pika_tpu_torch.decode.beam as beam_module
+
+    t_phase = time.perf_counter()
+    data_lst = subset_archive(paths, MBR_UTTS, device)
+    work = os.path.dirname(data_lst)
+    loops = {}
+    cached = beam_module.cached_loop
+
+    def counting_loop(model, key, dtype, make):
+        loop = cached(model, key, dtype, make)
+        loops[(id(model), key)] = loop
+        return loop
+
+    beam_module.cached_loop = counting_loop
+    reset_launches()
+    try:
+        log = os.path.join(work, "mbr.log")
+        cli_run("MBR CLI", [
+            data_lst, log, os.path.join(work, "mbr"), *MBR_FLAGS, "--init_model",
+            paths["bundle"], "--feat_config", paths["fbank"], "--cmvn_stats", paths["stats"],
+            "--device", str(device)], log, mbr_main)
+    finally:
+        beam_module.cached_loop = cached
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    loop_bytes = sum(t.nbytes for loop in loops.values()
+                     for t in [*loop.state.values(), *loop.inputs.values()])
+    say(f"MBR CLI: {len(loops)} captured beam loops (one per (B, T) bucket), their state "
+        f"{loop_bytes / 2**20:.1f} MiB; launches {launches}")
+    check(all(n > 0 for n in launches.values()), f"the MBR CLI launched K1-K3: {launches}")
+    check(os.path.exists(os.path.join(work, "mbr", "model.tmp", "model.pt")), "MBR model.tmp")
+    check(os.path.exists(os.path.join(work, "mbr", "model.epoch.1", "model.pt")),
+          "MBR model.epoch.1")
+    del loops
+
+    # in process at MBR_BATCH x 10 s: references the N-best resembles, so
+    # that the sequence weights are not 0
+    batch = corpus_batch(paths, device)
+    model, featurizer, optimizer = mbr_setup(device, paths)
+    nbest = mbr_decode(model, featurizer, MBR_BEAM, batch["wavs"], batch["wav_lens"])
+    batch = nbest_refs(nbest, batch)
+    seq_grad = mbr_risk(nbest, batch["labels"], batch["label_lens"])[2]
+    say(f"MBR batch: hypothesis lengths {nbest['lens'].tolist()}, reference lengths "
+        f"{batch['label_lens'].tolist()}; sequence weights {seq_grad.cpu().numpy().round(4).tolist()}")
+    check(seq_grad.abs().max().item() > 1e-3, "MBR: the sequence weights are not 0")
+
+    # one step, timed by stage through the step's own stage hook
+    gen = torch.Generator(device).manual_seed(1)
+    step = make_mbr_step(model, optimizer, featurizer, MBR_BEAM, rnnt_scale=0.02,
+                         sm_scale=MBR_BEAM.sm_scale)
+    step(batch, gen)["loss"].item()  # warm-up: the capture, cuBLAS/cuDNN plans
+    marks = []
+
+    def stage(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    reset_launches()
+    stage("start")
+    out = step(batch, gen, stage)
+    per_step = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    say(f"MBR step launches: {per_step}")
+    check(per_step == {"K1": 1, "K2": 1, "K3": 1}, "one K1, K2, K3 launch per MBR step")
+    say(f"MBR step at {MBR_BATCH} x {SECONDS} s, beam {MBR_BEAM.beam_size}, "
+        f"{MBR_BEAM.max_symbols} symbols, by stage: " + "; ".join(
+        f"{name} {(t - t_prev) * 1e3:.1f} ms" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+        + f"; in all {(marks[-1][1] - marks[0][1]) * 1e3:.1f} ms")
+    surrogate = out["loss"].item() - 0.02 * out["rnnt_loss"].item()
+    say(f"MBR step: objective {out['loss'].item():.6f} = 0.02 x RNN-T {out['rnnt_loss'].item():.4f}"
+        f" + surrogate {surrogate:.6f}; expected edit distance {out['mbr_loss'].item():.4f}")
+    # its value is small (an utterance's weights sum to 0 over similar paths):
+    # it must exceed float32 rounding of the objective; its gradient's share
+    # is checked below
+    check(abs(surrogate) > 16 * torch.finfo(torch.float32).eps * abs(out["loss"].item()),
+          "MBR: the surrogate is not 0")
+    # after that update: the graphed N-best against the eager loop's
+    graphed = mbr_decode(model, featurizer, MBR_BEAM, batch["wavs"], batch["wav_lens"])
+    eager = mbr_decode(model, featurizer, MBR_BEAM, batch["wavs"], batch["wav_lens"],
+                       search=beam_search_eager)
+    say(f"MBR decode after the update: {int(graphed['steps'])} loop steps")
+    check(same_nbest(graphed, eager), "MBR: graphed N-best after an update = eager N-best")
+    net = next(loop.net for key, loop in model.__dict__["_decode_loops"].items())
+    check(torch.equal(net.fc2.weight, model.fc2.weight.to(net.fc2.weight.dtype)),
+          "MBR: the captured loop reads the updated weights")
+    say("MBR: the graphed N-best after an update equals the eager loop's, from the updated "
+        "weights: ok")
+
+    # the objective and its gradient on the kernels and on the plain loss
+    # backend, on one N-best of these weights
+    nbest = graphed
+    t_k, r_k, g_k, n_k = mbr_gradients(model, featurizer, batch, nbest, "auto", 0.02)
+    t_p, r_p, g_p, n_p = mbr_gradients(model, featurizer, batch, nbest, "plain", 0.02)
+    g_s = mbr_gradients(model, featurizer, batch, nbest, "auto", 0.0)[2]
+    check(n_k == [1, 1, 1] and n_p == [0, 0, 0], f"K1-K3 launches {n_k} and {n_p} (plain)")
+    norm = lambda g: torch.cat([x.flatten() for x in g.values()]).norm().item()
+    share = norm(g_s) / norm(g_p)
+    rel_t, rel_r = abs(t_k - t_p) / abs(t_p), abs(r_k - r_p) / abs(r_p)
+    say(f"MBR objective on the kernels vs the plain backend: {t_k:.6f} vs {t_p:.6f} (rel "
+        f"{rel_t:.3e}), RNN-T term {r_k:.4f} vs {r_p:.4f} (rel {rel_r:.3e}), rtol "
+        f"{STEP_LOSS_RTOL}; the surrogate's share of the gradient's norm {share:.3f}")
+    check(rel_t <= STEP_LOSS_RTOL and rel_r <= STEP_LOSS_RTOL, "MBR objective and RNN-T term")
+    # the share follows the bundle's N-best (its scores' spread, the edit
+    # distances) and is printed; that the surrogate's part is right is held
+    # on its own, against the CPU
+    check(share > 0, "MBR: the surrogate's gradient is not 0")
+    hold_gradients("MBR gradient, kernels vs plain backend", g_k, g_p)
+    surrogate_parity(model, featurizer, batch, nbest)
+    del model, optimizer, step, graphed, eager, nbest, g_k, g_p, g_s
+    torch.cuda.empty_cache()
+    say(f"MBR phase: {time.perf_counter() - t_phase:.3f} s")
     return launches
+
+
+def las_path(device, paths: dict) -> None:
+    """The LAS recipe's CLI at its width on the training CLI's bundle: one
+    epoch forward and one with --reverse_labels; the decode CLI on 8
+    synthetic 10 s wavs (beam 8, n_best 8), first without the rescorers,
+    then with both and --output_scores; the rescoring of 8 x 8 hypotheses
+    timed and profiled at the bundle's hypothesis length and cut to
+    RESCORE_CUT labels; las_score_hyps on the card against the CPU; the
+    rerank CLI on the CLI's N-best."""
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(paths["train"]), "las")
+    os.makedirs(work)
+    common = [os.path.join(paths["train"], "data.lst"), *LAS_FLAGS, "--feat_config",
+              paths["fbank"], "--cmvn_stats", paths["stats"], "--shared_encoder_model",
+              paths["bundle"], "--device", str(device)]
+    bundles = {}
+    for name, extra in (("fw", []), ("bw", ["--reverse_labels"])):
+        log = os.path.join(work, f"{name}.log")
+        cli_run(f"LAS CLI {name}", [common[0], log, os.path.join(work, name), *common[1:],
+                                    *extra], log, las_main)
+        bundles[name] = os.path.join(work, name, "model.epoch.0")
+
+    # the decode CLI on 8 synthetic 10 s wavs, without and with both rescorers
+    rng = np.random.default_rng(7)
+    with open(os.path.join(work, "wav.scp"), "w") as scp, \
+            open(os.path.join(work, "label.txt"), "w") as lab:
+        for i in range(BATCH):
+            path = os.path.join(work, f"u{i}.wav")
+            write_wav(path, (rng.standard_normal(SR * SECONDS) * 3000).astype(np.int16), SR)
+            scp.write(f"utt{i} {path}\n")
+            lab.write(f"utt{i} " + " ".join(map(str, rng.integers(1, VOCAB, 25))) + "\n")
+    nbest_file = os.path.join(work, "nbest.txt")
+    decode_args = [paths["bundle"], os.path.join(work, "wav.scp"), nbest_file,
+                   "--beam_size", str(BEAM), "--n_best", str(NBEST),
+                   "--max_wav_seconds", str(SECONDS), "--feat_config", paths["fbank"],
+                   "--cmvn_stats", paths["stats"], "--SOS", "0", "--EOS", str(VOCAB),
+                   "--ref_labels", f"ark:{os.path.join(work, 'label.txt')}",
+                   "--device", str(device)]
+    for line in decode_cli_best(decode_args)[1]:
+        say(f"decode CLI without LAS (the same bundle and wavs): {line}")
+    torch.cuda.reset_peak_memory_stats(device)
+    best, err = decode_cli_best([*decode_args, "--las_rescorer_model", bundles["fw"],
+                                 "--las_rescorer_bw_model", bundles["bw"], "--output_scores"])
+    peak = torch.cuda.max_memory_allocated(device)
+    for line in err:
+        say(f"decode CLI with LAS fw + bw: {line}")
+    with open(nbest_file) as f:
+        lines = f.read().splitlines()
+    check(len(lines) == BATCH * NBEST and len(best) == BATCH,
+          f"decode CLI with LAS: {len(lines)} N-best lines")
+    say(f"decode CLI with LAS fw + bw: {len(lines)} N-best lines, peak memory "
+        f"{peak / 2**30:.3f} GiB")
+
+    # the rerank CLI on that N-best gives the CLI's best hypotheses
+    rerank_main([nbest_file, os.path.join(work, "best.txt"), "--nbest", str(NBEST), "--ids",
+                 "--las_rescore", "--las_dirs", "both"])
+    with open(os.path.join(work, "best.txt")) as f:
+        reranked = [line.split() for line in f.read().splitlines()]
+    check(reranked == [best[f"utt{i}"] for i in range(BATCH)],
+          "rerank CLI on the N-best = the decode CLI's best hypotheses")
+    say("rerank CLI on the decode CLI's N-best: the same 8 best hypotheses: ok")
+
+    # the rescoring alone: 8 x 8 hypotheses of that decode, forward and
+    # backward, at their length and cut to RESCORE_CUT labels
+    model, _ = load_bundle(paths["bundle"], device)
+    fw, _ = load_bundle(bundles["fw"], device)
+    bw, _ = load_bundle(bundles["bw"], device)
+    args = eval_module.build_parser().parse_args([
+        paths["bundle"], "wav.scp", "out", "--feat_config", paths["fbank"], "--cmvn_stats",
+        paths["stats"], "--max_wav_seconds", str(SECONDS)])
+    args.spec_augment, args.max_freq_span, args.max_time_span = False, 0, 0
+    featurizer, _, _ = cli_common.featurizer_from_args(args, spec_augment=False, device=device)
+    wavs = torch.stack([torch.from_numpy(read_wav(line.split()[1])[0].astype(np.float32))
+                        for line in open(os.path.join(work, "wav.scp"))]).to(device)
+    wav_lens = torch.full((BATCH,), wavs.shape[1], dtype=torch.int32, device=device)
+    out = beam_search_waveforms(model, featurizer, wavs, wav_lens,
+                                BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=220,
+                                           mm_dtype="auto"))
+    args = (out["enc_out"], out["enc_lens"], out["tokens"], out["lens"])
+    cut = (*args[:2], args[2][..., :RESCORE_CUT], args[3].clamp(max=RESCORE_CUT))
+    for what, hyps in ((f"longest {int(out['lens'].max())} labels", args),
+                       (f"cut to {RESCORE_CUT} labels", cut)):
+        def rescore():
+            las_score_hyps(fw, *hyps, sos=0, eos=VOCAB)[0].sum().item()
+            las_score_hyps(bw, *hyps, sos=0, eos=VOCAB, reverse=True)[0].sum().item()
+
+        rescore()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rescore()
+            times.append(time.perf_counter() - t0)
+        say(f"LAS rescoring of {BATCH} x {NBEST} hypotheses ({what}), forward + backward: "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, median "
+            f"{statistics.median(times) * 1e3:.1f} ms")
+        profile(lambda: las_score_hyps(fw, *hyps, sos=0, eos=VOCAB)[0].sum().item(),
+                f"las_score_hyps (forward, 8 x 8 hypotheses, {what})")
+
+    # las_score_hyps on the card against the CPU: 2 utterances x 4 hypotheses
+    sub = [x[:2] for x in args[:2]] + [x[:2, :4] for x in args[2:]]
+    got = las_score_hyps(fw, *sub, sos=0, eos=VOCAB)
+    fw_cpu, _ = load_bundle(bundles["fw"], "cpu")
+    ref = las_score_hyps(fw_cpu, *(x.cpu() for x in sub), sos=0, eos=VOCAB)
+    errs = [((g.cpu() - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref)]
+    say(f"las_score_hyps on the card vs the CPU (2 x 4 hypotheses, float32, TF32 off): max "
+        f"error / max value {errs[0]:.3e} (totals), {errs[1]:.3e} (per token); rtol {LAS_RTOL}")
+    check(max(errs) <= LAS_RTOL, "las_score_hyps on the card = on the CPU")
+    del model, fw, bw, fw_cpu, out, args
+    torch.cuda.empty_cache()
+    say(f"LAS phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def profile(fn, what: str, also: str = "") -> None:
@@ -1776,7 +2328,7 @@ def main() -> int:
         if any(key in line for key in ("registers", "spill", "bytes smem", "warning", "C75")):
             say(f"  {kernel}: {line.strip()[:160]}")
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_")  # the FST phases' LM files
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # LM files, the CLI phases' corpus and bundles
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)
     k4 = k4_parity(device)
@@ -1792,7 +2344,9 @@ def main() -> int:
     long_utterances(device)
     small_heads_path(device)
     launches, _ = train_path(device)
-    cli_launches = train_cli_path(device)
+    cli_launches, cli_paths = train_cli_path(device, os.path.join(work, "train_cli"))
+    mbr_launches = mbr_path(device, cli_paths)
+    las_path(device, cli_paths)
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)
@@ -1800,7 +2354,8 @@ def main() -> int:
     shutil.rmtree(work)
 
     say(f"K1 launches: inference path {inference_launches}, training path {launches['K1']}; "
-        f"training CLI (2 epochs + validation) {cli_launches}")
+        f"training CLI (2 epochs + validation) {cli_launches}; MBR CLI (2 epochs) "
+        f"{mbr_launches}")
     say(card)
     print(json.dumps({"kernels": [
         {"name": "joint_channels_fwd", "route": "cuda",

@@ -13,7 +13,13 @@ the torch modules here carry the flax module names.  Layout rules:
 * LayerNorm ``scale``/``bias``     -> ``weight``/``bias``
 * LSTM ``l{k}_d0_wih`` (in, 4H), ``l{k}_d0_whh`` (H, 4H), ``l{k}_d0_b`` (4H,)
                                    -> ``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}`` (4H, H),
-                                      ``bias_l{k}``; gate order i, f, g, o on both sides
+                                      ``bias_l{k}``; gate order i, f, g, o on both sides;
+                                      ``l{k}_d1_*`` -> the same with the suffix ``_reverse``
+* SRU cell ``weight`` (in, k*n_out*dirs), ``bias``
+                                   -> the same names and layouts
+* LAS decoder leaves ``dec_cell_{i}_{wih,whh,b}``, ``attn_*``, ``gate_*``
+                                   -> the same names and layouts (the LAS module
+                                      keeps the JAX (in, out) layout for them)
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 _LSTM_KEY = re.compile(r"^l(\d+)_d(\d+)_(wih|whh|b)$")
+_LAS_RAW_KEY = re.compile(r"^(dec_cell_\d+_(wih|whh|b)|attn_\w+|gate_\w+)$")
 
 
 def _t(x) -> torch.Tensor:
@@ -61,10 +68,12 @@ def _convert_node(path: str, node: dict, stats: dict | None, out: dict) -> None:
     elif all(_LSTM_KEY.match(k) for k in keys):
         for k, v in leaves.items():
             layer, direction, kind = _LSTM_KEY.match(k).groups()
-            if direction != "0":
-                raise NotImplementedError(f"{path}{k}: bidirectional LSTM is not ported yet")
             name = {"wih": "weight_ih", "whh": "weight_hh", "b": "bias"}[kind]
-            out[f"{path}{name}_l{layer}"] = _t(v.T if kind != "b" else v)
+            suffix = "_reverse" if direction == "1" else ""
+            out[f"{path}{name}_l{layer}{suffix}"] = _t(v.T if kind != "b" else v)
+    elif keys == {"weight", "bias"} or all(_LAS_RAW_KEY.match(k) for k in keys):
+        for k, v in leaves.items():
+            out[path + k] = _t(v)
     else:
         raise ValueError(f"{path.rstrip('.')}: unrecognised flax leaves {sorted(keys)}")
 

@@ -1,5 +1,5 @@
 """Decoding: batched greedy and beam search with n-gram FST shallow fusion,
-N-best reranking and WER scoring."""
+LAS rescoring, N-best reranking and WER scoring."""
 
 from pika_tpu_torch.decode.beam import (
     BeamConfig,
@@ -27,5 +27,5 @@ from pika_tpu_torch.decode.greedy import (
     greedy_decode_eager,
     greedy_decode_waveforms,
 )
-from pika_tpu_torch.decode.rescore import rerank_nbest
+from pika_tpu_torch.decode.rescore import las_score_hyps, rerank_nbest
 from pika_tpu_torch.decode.wer import edit_distance, edit_distance_batch, score_wer

@@ -59,7 +59,11 @@ class DecodeLoop:
         stream that allocates the library workspaces (cuBLAS, the sort).
         Every capture on a device shares one side stream: cuBLAS keeps a
         workspace for each stream it has run on, for the life of the
-        process.  The warm-up moves the state: reset it before running."""
+        process.  The warm-up moves the state: reset it before running.
+        The capture forbids unsafe CUDA calls on this thread only: the
+        training CLIs pin the next batches on a prefetch thread, whose host
+        allocator queries CUDA events (and may allocate) at any moment, and
+        in the default global mode that invalidates the capture."""
         device = self.state["running"].device
         if device not in _CAPTURE_STREAMS:
             _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
@@ -70,7 +74,7 @@ class DecodeLoop:
                 self.body()
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             self.body()
 
     def run(self, graphed: bool, steps_per_check: int, *inputs) -> None:

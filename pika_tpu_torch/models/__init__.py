@@ -1,7 +1,10 @@
-"""Models: LSTM prediction net, transformer blocks, TDNN-Transformer encoder
-and the transducer."""
+"""Models: LSTM (the prediction net; bidirectional and masked in the LAS),
+SRU, transformer blocks, TDNN-Transformer encoder, the transducer and the
+LAS rescorer."""
 
+from pika_tpu_torch.models.las import LAS, LASConfig, PyramidLSTM, init_las
 from pika_tpu_torch.models.lstm import LSTM, lstm_cell_step, lstm_stack_step
+from pika_tpu_torch.models.sru import SRU, SRUCell
 from pika_tpu_torch.models.transformer import (
     MultiHeadedAttention,
     PositionwiseFeedForward,

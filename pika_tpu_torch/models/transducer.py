@@ -213,10 +213,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.reset_parameters()
             elif isinstance(mod, LSTM):
                 for k in range(mod.num_layers):
-                    w_ih, w_hh, bias = mod.layer_params(k)
-                    _lecun_normal_(w_ih, w_ih.shape[1], generator)
-                    nn.init.orthogonal_(w_hh, generator=generator)
-                    bias.zero_()
+                    for d in range(mod.dirs):
+                        w_ih, w_hh, bias = mod.layer_params(k, d)
+                        _lecun_normal_(w_ih, w_ih.shape[1], generator)
+                        nn.init.orthogonal_(w_hh, generator=generator)
+                        bias.zero_()
 
 
 def init_transducer(cfg: TransducerConfig, generator: torch.Generator,

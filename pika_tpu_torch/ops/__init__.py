@@ -1,6 +1,8 @@
 """RNN-T loss, the fused joint-channel kernels K1 (forward), K2 and K3
-(backward), and the flash-attention kernel K4 (forward and backward)."""
+(backward), the flash-attention kernel K4 (forward and backward), and the
+batched edit distance of the MBR step."""
 
+from pika_tpu_torch.ops.edit_distance import edit_distance_batch
 from pika_tpu_torch.ops.flash_attention import (
     FlashAttention,
     flash_attention,

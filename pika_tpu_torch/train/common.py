@@ -178,6 +178,22 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--process_id", type=int, default=0)
 
 
+def check_single_card(args) -> None:
+    """The multi-card and multi-process modes raise, naming their ROADMAP
+    item, instead of being ignored."""
+    unported = [
+        (args.dp_mode != "sync",
+         f"--dp_mode {args.dp_mode} (BMUF and the block strategies): ROADMAP Queue 1 item 7"),
+        (args.num_processes > 1 or bool(args.coordinator_address),
+         "--num_processes > 1 and --coordinator_address (multi-host): ROADMAP Queue 1 item 7"),
+        ((args.num_devices or 1) > 1,
+         "--num_devices > 1 (data parallelism over cards): ROADMAP Queue 1 item 7"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
 def add_utt_loader_args(parser: argparse.ArgumentParser) -> None:
     """Loader selection: ``otf`` reads raw waveforms, ``utt`` precomputed
     feature archives (``data/feats_loader.py``)."""

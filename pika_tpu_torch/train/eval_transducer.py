@@ -1,17 +1,21 @@
-"""Batch decoding CLI (port of ``pika_tpu/train/eval_transducer.py``,
-without LAS rescoring).
+"""Batch decoding CLI (port of ``pika_tpu/train/eval_transducer.py``).
 
 Reads a model bundle (``train/bundle.py``), decodes a wav.scp with features
 computed on the device (or, with ``--loader utt``, a feats.scp/.ark of
 precomputed features, spliced, strided and normalized on the host),
 optionally with n-gram FST shallow fusion
-(``--fst_lm``: an ARPA LM, a binary OpenFst or an AT&T text FST), writes the
-N-best hypotheses in the reference's format, then reranks and, given
-references, scores the WER:
+(``--fst_lm``: an ARPA LM, a binary OpenFst or an AT&T text FST), rescores
+the N-best with forward and backward LAS rescorers
+(``--las_rescorer_model``, ``--las_rescorer_bw_model``: bundles of kind
+``las``, ``decode/rescore.py``), writes the N-best hypotheses in the
+reference's format (with ``--output_scores`` the RNN-T score and the LAS
+per-token scores), then reranks and, given references, scores the WER
+(also once per ``--las_scale_sweep`` pair of LAS weights):
 
     python -m pika_tpu_torch.train.eval_transducer BUNDLE wav.scp nbest.txt \\
         --ref_labels ark:label.txt --beam_size 8 --n_best 8 \\
-        --fst_lm lm.arpa --symbols_map units.txt --fst_lm_scale 0.5
+        --fst_lm lm.arpa --symbols_map units.txt --fst_lm_scale 0.5 \\
+        --las_rescorer_model LAS_FW --las_rescorer_bw_model LAS_BW --SOS 0 --EOS 6268
 
 The decode runs on the card unless ``--device cpu``.  Waveform batches are
 padded to ``--batch_size`` rows of ``--max_wav_seconds``, so one shape (one
@@ -36,7 +40,7 @@ from pika_tpu_torch.data.scp import read_int_vectors, read_symbol_table, read_wa
 from pika_tpu_torch.data.wavio import read_wav
 from pika_tpu_torch.decode.beam import BeamConfig, beam_search_features, beam_search_waveforms
 from pika_tpu_torch.decode.fst import compile_arpa, read_openfst_binary, read_text_fst
-from pika_tpu_torch.decode.rescore import rerank_nbest
+from pika_tpu_torch.decode.rescore import las_score_hyps, rerank_nbest
 from pika_tpu_torch.decode.wer import score_wer
 from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.train import common
@@ -95,14 +99,21 @@ def build_parser():
                              "<fst_lm>.advcache.npz), keyed by a content fingerprint of the "
                              "compiled tables; the JAX CLI reads the same file")
     parser.add_argument("--las_rescorer_model", type=str, default=None,
-                        help="LAS rescoring: not ported yet")
-    parser.add_argument("--las_rescorer_bw_model", type=str, default=None)
+                        help="forward LAS rescorer bundle")
+    parser.add_argument("--las_rescorer_bw_model", type=str, default=None,
+                        help="backward LAS rescorer bundle (trained with --reverse_labels)")
     parser.add_argument("--las_input", type=str, default="auto",
-                        choices=["auto", "enc", "feats"])
+                        choices=["auto", "enc", "feats"],
+                        help="what the LAS rescorer consumes: the transducer encoder output "
+                             "(enc, the shared-encoder rescorer) or the decode features "
+                             "(feats); auto reads the bundle's las_input metadata, then "
+                             "matches input_dim, and raises on a tie")
     parser.add_argument("--rnnt_score_scale", type=float, default=1.0)
     parser.add_argument("--las_fw_score_scale", type=float, default=0.3)
     parser.add_argument("--las_bw_score_scale", type=float, default=0.7)
-    parser.add_argument("--las_scale_sweep", type=str, default="")
+    parser.add_argument("--las_scale_sweep", type=str, default="",
+                        help="comma-separated fw:bw pairs, e.g. '0.3:0.7,0.5:0.5': one "
+                             "decode, a WER line per pair (needs --ref_labels)")
     parser.add_argument("--output_scores", action="store_true")
     parser.add_argument("--min_len", type=int, default=0,
                         help="minimum feature frames; short utterances are edge-padded")
@@ -116,17 +127,40 @@ def build_parser():
     return parser
 
 
-def _check_ported(args) -> None:
-    """The flags whose paths are not ported raise, naming their ROADMAP
-    item, instead of being ignored."""
-    unported = [
-        (bool(args.las_rescorer_model or args.las_rescorer_bw_model or args.las_scale_sweep),
-         "--las_rescorer_model, --las_rescorer_bw_model and --las_scale_sweep (LAS "
-         "rescoring): ROADMAP Queue 1 item 6"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+def select_las_input(flag: str, meta: dict, input_dim: int, enc_dim: int,
+                     feat_dim: int) -> str:
+    """Which tensor the LAS rescorer consumes: ``"enc"`` (the transducer
+    encoder's output, the shared-encoder rescorer) or ``"feats"`` (a LAS with
+    its own encoder).  The ``--las_input`` flag wins, then the bundle's
+    ``las_input`` metadata, then ``input_dim`` matching; a tie with no
+    recorded kind raises, and so does a kind whose width is not the
+    rescorer's ``input_dim``."""
+    kind = flag
+    if kind == "auto":
+        kind = meta.get("las_input", "auto")
+    if kind == "auto":
+        if input_dim == enc_dim and input_dim == feat_dim:
+            raise ValueError(
+                f"LAS rescorer input_dim {input_dim} matches BOTH the "
+                "transducer encoder output and the decode features, and "
+                "the bundle records no las_input kind; pass "
+                "--las_input enc|feats")
+        if input_dim == enc_dim:
+            kind = "enc"
+        elif input_dim == feat_dim:
+            kind = "feats"
+        else:
+            raise ValueError(
+                f"LAS rescorer input_dim {input_dim} matches neither the "
+                f"transducer encoder output ({enc_dim}) nor the decode "
+                f"features ({feat_dim}); decode feature flags must match "
+                "the rescorer's training")
+    want = enc_dim if kind == "enc" else feat_dim
+    if input_dim != want:
+        raise ValueError(
+            f"LAS rescorer input_dim {input_dim} != the selected "
+            f"las_input '{kind}' dim ({want})")
+    return kind
 
 
 def load_fst(args, vocab_size: int, device: torch.device):
@@ -229,7 +263,6 @@ def _chunk_stream(uttids, make_chunk, bsz):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     device = resolve_device(args.device)
     model, _ = load_bundle(args.model, device,
                            **({"attn_chunk": args.attn_chunk} if args.attn_chunk >= 0 else {}))
@@ -250,6 +283,15 @@ def main(argv=None):
                      nonblk_reward=args.nonblk_reward, max_fst_states=args.max_fst_states,
                      lm_per_token=args.fst_per_token or args.fst_fusion == "per_token",
                      lm_topm=lm_topm, mm_dtype=args.decode_dtype)
+
+    rescorers = {}  # direction -> (LAS, metadata, reverse)
+    for name, path in (("fw", args.las_rescorer_model), ("bw", args.las_rescorer_bw_model)):
+        if path:
+            las, meta = load_bundle(path, device)
+            rescorers[name] = (las, meta, name == "bw")
+    sweep_pairs = [tuple(float(x) for x in p.split(":"))
+                   for p in args.las_scale_sweep.split(",") if p]
+    hyp_sweep = [dict() for _ in sweep_pairs]
 
     sym_map = read_symbol_table(args.symbols_map) if args.symbols_map else None
     bsz = args.batch_size
@@ -292,16 +334,44 @@ def main(argv=None):
                 out = beam_search_waveforms(model, featurizer, x, lens, cfg, fst_tables, fst_start)
             else:
                 out = beam_search_features(model, x, lens, cfg, fst_tables, fst_start)
+            las_scores, las_tok = {}, {}
+            for name, (las, meta, reverse) in rescorers.items():
+                try:
+                    kind = select_las_input(args.las_input, meta, las.config.input_dim,
+                                            out["enc_out"].shape[-1], out["feats"].shape[-1])
+                except ValueError as exc:
+                    sys.exit(str(exc))
+                src, src_lens = ((out["enc_out"], out["enc_lens"]) if kind == "enc"
+                                 else (out["feats"], out["feat_lens"]))
+                total, per_token = las_score_hyps(
+                    las, src, src_lens, out["tokens"], out["lens"],
+                    sos=args.SOS if args.SOS >= 0 else 0,
+                    eos=args.EOS if args.EOS >= 0 else las.config.output_dim - 1, reverse=reverse)
+                las_scores[name], las_tok[name] = total.cpu().numpy(), per_token.cpu().numpy()
             host = {k: out[k].cpu().numpy() for k in ("tokens", "lens", "scores")}
-            best_idx, _ = rerank_nbest(host["scores"], host["lens"], rnnt_scale=args.rnnt_score_scale)
+            fw, bw = las_scores.get("fw"), las_scores.get("bw")
+            best_idx, _ = rerank_nbest(host["scores"], host["lens"], fw, bw, args.rnnt_score_scale,
+                                       args.las_fw_score_scale, args.las_bw_score_scale)
+            # the scale sweep reranks the same N-best once per pair
+            for (fs, bs), hyps in zip(sweep_pairs, hyp_sweep):
+                bidx, _ = rerank_nbest(host["scores"], host["lens"], fw, bw,
+                                       args.rnnt_score_scale, fs, bs)
+                for i, uttid in enumerate(chunk):
+                    hyps[uttid] = [str(int(t)) for t in
+                                   host["tokens"][i, bidx[i], :int(host["lens"][i, bidx[i]])]]
             for i, uttid in enumerate(chunk):
                 for j in range(args.n_best):
-                    toks = [int(t) for t in host["tokens"][i, j, :int(host["lens"][i, j])]]
+                    length = int(host["lens"][i, j])
+                    toks = [int(t) for t in host["tokens"][i, j, :length]]
                     text = ("".join(sym_map.get(t, f"<{t}>") for t in toks) if sym_map
                             else " ".join(map(str, toks)))
                     out_f.write(text)
                     if args.output_scores:
                         out_f.write(f" {float(host['scores'][i, j])}")
+                        for name in ("fw", "bw"):
+                            if name in las_tok:
+                                out_f.write(" " + " ".join(
+                                    str(float(x)) for x in las_tok[name][i, j, :length + 1]))
                     out_f.write("\n")
                 bj = int(best_idx[i])
                 hyp_best[uttid] = [str(int(t)) for t in host["tokens"][i, bj, :int(host["lens"][i, bj])]]
@@ -321,6 +391,10 @@ def main(argv=None):
             print(f"WARNING: {n_unref} decoded utterances have no reference "
                   f"({len(refs)} of {len(hyp_best)} scored) — check that "
                   "--ref_labels ids match wav.scp ids", file=sys.stderr)
+        for (fs, bs), hyps in zip(sweep_pairs, hyp_sweep):
+            w_s, c_s = score_wer(refs, {u: h for u, h in hyps.items() if u in refs})
+            print(f"las_scales {fs}:{bs} %WER {w_s * 100:.2f} "
+                  f"[ {c_s['errors']} / {c_s['words']} ]", file=sys.stderr)
         wer, counts = score_wer(refs, hyp_best)
         print(f"%WER {wer * 100:.2f} [ {counts['errors']} / {counts['words']}, "
               f"{counts['ins']} ins, {counts['del']} del, {counts['sub']} sub ]", file=sys.stderr)

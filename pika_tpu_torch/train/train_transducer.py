@@ -20,8 +20,9 @@ log lines are the JAX CLI's.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP Queue 1
 item: ``--dp_mode`` bmuf/blockadam/bmufadam, more than one process or card
-(item 7), ``--pruned_loss_range > 0`` (item 8), ``--encoder_type rnn`` and
-``--decoder_type transformer`` (item 9), ``--brnn`` (item 6).
+(item 7), ``--pruned_loss_range > 0`` (item 8), ``--encoder_type rnn``,
+``--decoder_type transformer`` and ``--brnn``, which only the rnn encoder
+reads (item 9).
 ``--steps_per_dispatch`` is accepted and has no effect.
 """
 
@@ -76,17 +77,14 @@ def check_ported(args) -> None:
     item, instead of being ignored.  With ``--init_model`` the bundle's
     configuration replaces the model flags (as in the JAX CLI), and loading
     it raises on the unported model types."""
+    common.check_single_card(args)
     fresh = not args.init_model
     unported = [
-        (args.dp_mode != "sync",
-         f"--dp_mode {args.dp_mode} (BMUF and the block strategies): ROADMAP Queue 1 item 7"),
-        (args.num_processes > 1 or bool(args.coordinator_address),
-         "--num_processes > 1 and --coordinator_address (multi-host): ROADMAP Queue 1 item 7"),
-        ((args.num_devices or 1) > 1,
-         "--num_devices > 1 (data parallelism over cards): ROADMAP Queue 1 item 7"),
         (args.pruned_loss_range > 0,
          "--pruned_loss_range > 0 (the pruned loss): ROADMAP Queue 1 item 8"),
-        (fresh and args.brnn, "--brnn (the bidirectional LSTM): ROADMAP Queue 1 item 6"),
+        (fresh and args.brnn,
+         "--brnn (the bidirectional encoder LSTM, which only the rnn encoder has): ROADMAP "
+         "Queue 1 item 9"),
         (fresh and args.encoder_type == "rnn", "--encoder_type rnn: ROADMAP Queue 1 item 9"),
         (fresh and args.decoder_type == "transformer",
          "--decoder_type transformer (the transformer prediction net): ROADMAP Queue 1 item 9"),

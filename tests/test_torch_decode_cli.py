@@ -1,8 +1,10 @@
 """The port's decode CLI and the host data it reads, against the JAX package
 on the CPU: the data copies (WAV reading, Kaldi text parsers, sample
 conversion, CMVN, WER, reranking) on the same files and arrays; the bundle
-conversion from an Orbax bundle; and both ``eval_transducer.main`` in-process
-on the same synthetic wavs -- the same N-best file and the same WER."""
+conversion from an Orbax bundle (transducer and LAS); and both
+``eval_transducer.main`` in-process on the same synthetic wavs -- the same
+N-best file and the same WER, also with LAS rescoring and its scale
+sweep."""
 
 import inspect
 import json
@@ -19,17 +21,22 @@ from pika_tpu.data import segment as segment_jax
 from pika_tpu.data.kaldi_ark import write_matrix_ark
 from pika_tpu.decode.rescore import rerank_nbest as rerank_jax
 from pika_tpu.decode.wer import edit_distance as edit_distance_jax, score_wer as score_wer_jax
+from pika_tpu.models.las import LASConfig as LASConfigJax, init_las as init_las_jax
 from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
 from pika_tpu.train.bundle import load_bundle as load_bundle_jax, save_bundle as save_bundle_jax
-from pika_tpu.train.eval_transducer import main as eval_main_jax
+from pika_tpu.train.eval_transducer import (
+    main as eval_main_jax,
+    select_las_input as select_las_input_jax,
+)
 import pika_tpu_torch.data as data_pt
 import pika_tpu_torch.models.transformer as transformer_pt
 from pika_tpu_torch.convert import state_dict_from_flax
 from pika_tpu_torch.decode.rescore import rerank_nbest
 from pika_tpu_torch.decode.wer import edit_distance, score_wer
+from pika_tpu_torch.models.las import LAS, LASConfig, init_las
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.train.bundle import bundle_from_flax, load_bundle, save_bundle
-from pika_tpu_torch.train.eval_transducer import main as eval_main
+from pika_tpu_torch.train.eval_transducer import main as eval_main, select_las_input
 
 torch.set_num_threads(1)
 
@@ -39,6 +46,11 @@ MEL = 20
 MODEL = dict(input_dim=3 * MEL, vocab_size=VOCAB, hid_dim=16, encoder_type="tdnn_transformer",
              decoder_type="rnn", dec_layers=2, embd_dim=8, tdnn_nhid=32, tdnn_layers=5)
 N_UTTS = 5  # two batches of 4: the second is filled with rows of silence
+# LAS rescorers: the labels and EOS (= VOCAB), pad VOCAB + 1; on the
+# transducer encoder's output (hid_dim 16) or on the features
+LAS_CFG = dict(output_dim=VOCAB + 1, pad_idx=VOCAB + 1, rnn_size=16, enc_layers=2, dec_layers=2,
+           embd_dim=6)
+LAS_BUNDLES = {"fw": (16, "enc", False), "bw": (16, "enc", True), "feats": (3 * MEL, "feats", False)}
 
 
 def _write_pcm24(path, samples):
@@ -75,21 +87,30 @@ def corpus(tmp_path_factory):
     v = jax.tree.map(np.array, variables)
     v["params"]["fc2"]["bias"][0] += 2.0  # a model that also stops by the search's stop rule
     save_bundle_jax(str(d / "jax_bundle"), "transducer", ConfigJax(**MODEL), v)
+    inits = {}  # one compiled init per input width
+    for i, (name, (input_dim, las_input, reverse)) in enumerate(LAS_BUNDLES.items()):
+        cfg = LASConfigJax(input_dim=input_dim, **LAS_CFG)
+        if input_dim not in inits:
+            inits[input_dim] = jax.jit(lambda key, cfg=cfg: init_las_jax(key, cfg)[1])
+        las_v = inits[input_dim](jax.random.PRNGKey(20 + i))
+        save_bundle_jax(str(d / f"jax_las_{name}"), "las", cfg, jax.tree.map(np.asarray, las_v),
+                        metadata={"epoch": 0, "reverse_labels": reverse, "las_input": las_input})
     return d, v
 
 
-def _port_bundle(d):
-    """The Orbax bundle converted as the README says."""
-    _, variables, _ = load_bundle_jax(str(d / "jax_bundle"))
-    with open(d / "jax_bundle" / "model.json") as f:
+def _port_bundle(d, name="bundle"):
+    """The Orbax bundle ``jax_<name>`` converted as the README says."""
+    _, variables, _ = load_bundle_jax(str(d / f"jax_{name}"))
+    with open(d / f"jax_{name}" / "model.json") as f:
         spec = json.load(f)
-    return bundle_from_flax(str(d / "torch_bundle"), spec, jax.tree.map(np.asarray, variables))
+    return bundle_from_flax(str(d / f"torch_{name}"), spec, jax.tree.map(np.asarray, variables))
 
 
 def test_bundle_round_trip(corpus, tmp_path):
     """Orbax save_bundle -> bundle_from_flax -> load_bundle(device="cpu")
-    gives the flax tree's state dict; the port's own save_bundle round-trips
-    a model."""
+    gives the flax tree's state dict, for a transducer and a LAS bundle
+    (with its metadata); the port's own save_bundle round-trips both kinds;
+    an unknown kind raises."""
     d, v = corpus
     model, meta = load_bundle(_port_bundle(d), device="cpu")
     assert meta == {} and not model.training and model.config == TransducerConfig(**MODEL)
@@ -103,10 +124,25 @@ def test_bundle_round_trip(corpus, tmp_path):
     assert meta == {"epoch": 3}
     for (k, x), y in zip(pt.state_dict().items(), again.state_dict().values()):
         assert torch.equal(x, y), k
+    las, meta = load_bundle(_port_bundle(d, "las_bw"), device="cpu")
+    assert isinstance(las, LAS) and not las.training
+    assert las.config == LASConfig(input_dim=16, **LAS_CFG)
+    assert meta == {"epoch": 0, "reverse_labels": True, "las_input": "enc"}
+    _, las_v, _ = load_bundle_jax(str(d / "jax_las_bw"))
+    expected = state_dict_from_flax(jax.tree.map(np.asarray, las_v))
+    assert set(las.state_dict()) == set(expected)
+    for k, x in las.state_dict().items():
+        assert torch.equal(x, expected[k]), k
+    pt_las = init_las(LASConfig(input_dim=8, **LAS_CFG), torch.Generator().manual_seed(2), device="cpu")
+    again, meta = load_bundle(save_bundle(str(tmp_path / "las"), pt_las, {"las_input": "feats"}),
+                              device="cpu")
+    assert isinstance(again, LAS) and meta == {"las_input": "feats"}
+    for (k, x), y in zip(pt_las.state_dict().items(), again.state_dict().values()):
+        assert torch.equal(x, y), k
     spec = json.loads((tmp_path / "b" / "model.json").read_text())
-    spec["kind"] = "las"
+    spec["kind"] = "bogus"
     (tmp_path / "b" / "model.json").write_text(json.dumps(spec))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="bundle kind 'bogus'"):
         load_bundle(str(tmp_path / "b"), device="cpu")
 
 
@@ -292,12 +328,76 @@ def test_cli_fst_matches_jax(corpus, capsys, f32_attention, fusion):
         assert (d / (arpa.name + ".advcache.npz")).exists()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--las_rescorer_model", "las"], "item 6"),
-    (["--las_rescorer_bw_model", "las"], "item 6"), (["--las_scale_sweep", "0.3:0.7"], "item 6")])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        eval_main(["bundle", "wav.scp", "out.txt", "--device", "cpu", *flags])
+SWEEP = ["--las_scale_sweep", "0.3:0.7,0.5:0.5,1.0:0.0"]
+
+
+@pytest.mark.parametrize("rescorers,extra", [
+    (["fw", "bw"], ["--output_scores", *SWEEP]),
+    (["feats"], ["--output_scores", "--las_input", "feats", "--las_fw_score_scale", "0.8"]),
+    (["bw"], SWEEP)])
+def test_cli_las_matches_jax(corpus, capsys, f32_attention, rescorers, extra):
+    """Both CLIs with LAS rescoring from the same weights (forward and
+    backward rescorers on the transducer encoder's output, or a forward one
+    on the features): the hypotheses of every N-best line identical, its
+    RNN-T and per-token LAS scores within rtol 1e-5 (atol 1e-5 for a score
+    near 0), the file byte-identical without scores; the WER line and one
+    sweep line per pair identical."""
+    d, _ = corpus
+    bundle = _port_bundle(d)
+    flags = [*_flags(d), "--SOS", "0", "--EOS", str(VOCAB), *extra]
+    jax_las, pt_las = [], []
+    for name in rescorers:
+        flag = "--las_rescorer_bw_model" if name == "bw" else "--las_rescorer_model"
+        jax_las += [flag, str(d / f"jax_las_{name}")]
+        pt_las += [flag, _port_bundle(d, f"las_{name}")]
+    out = "_".join(rescorers)
+    wer_ref = eval_main_jax([str(d / "jax_bundle"), str(d / "wav.scp"), str(d / f"{out}_ref.txt"),
+                             *flags, *jax_las])
+    err_ref = capsys.readouterr().err
+    wer = eval_main([bundle, str(d / "wav.scp"), str(d / f"{out}_got.txt"), "--device", "cpu",
+                     *flags, *pt_las])
+    err = capsys.readouterr().err
+    assert wer == wer_ref
+
+    def lines(text, prefix):
+        return [x for x in text.splitlines() if x.startswith(prefix)]
+
+    for prefix in ("%WER", "las_scales"):
+        assert lines(err, prefix) == lines(err_ref, prefix), prefix
+    assert len(lines(err, "las_scales")) == (3 if SWEEP[1] in extra else 0)
+    got = (d / f"{out}_got.txt").read_text().splitlines()
+    ref = (d / f"{out}_ref.txt").read_text().splitlines()
+    assert len(got) == len(ref) == N_UTTS * 4 and any(got)
+    if "--output_scores" not in extra:
+        assert (d / f"{out}_got.txt").read_bytes() == (d / f"{out}_ref.txt").read_bytes()
+        return
+    n_dirs = len(rescorers)
+    for g, r in zip(got, ref):
+        g, r = g.split(), r.split()
+        assert len(g) == len(r)
+        # ntok ids, the RNN-T score, ntok + 1 per-token scores per direction
+        ntok = (len(g) - 1 - n_dirs) // (1 + n_dirs)
+        assert g[:ntok] == r[:ntok]
+        np.testing.assert_allclose(np.array(g[ntok:], float), np.array(r[ntok:], float),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_select_las_input_matches_jax():
+    """The rescorer's input by flag, by the bundle's metadata, by width, and
+    the ties and mismatches that raise, as in the JAX CLI."""
+    cases = [("auto", {}, 16, 16, 60), ("auto", {}, 60, 16, 60), ("auto", {}, 16, 16, 16),
+             ("auto", {"las_input": "feats"}, 60, 16, 60), ("enc", {"las_input": "feats"}, 16,
+                                                             16, 60),
+             ("feats", {}, 16, 16, 60), ("auto", {}, 7, 16, 60)]
+    for case in cases:
+        try:
+            ref = select_las_input_jax(*case)
+        except ValueError as exc:
+            with pytest.raises(ValueError) as got:
+                select_las_input(*case)
+            assert str(got.value) == str(exc)
+            continue
+        assert select_las_input(*case) == ref, case
 
 
 def test_cli_attn_chunk_matches_jax(corpus, capsys, f32_attention):

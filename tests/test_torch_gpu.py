@@ -8,6 +8,7 @@ so it also runs where JAX is not installed:
 """
 
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -596,6 +597,36 @@ def test_graph_recaptured_on_shape_change(cuda_device):
     assert len(loops) == 6 and all(loop.graph is not None for loop in loops.values())
 
 
+def test_graph_captured_beside_a_pinning_thread(cuda_device):
+    """The decode loops capture while another thread pins host memory and
+    copies it to the card on its own stream, as the training CLIs' prefetch
+    thread pins batches (the host allocator queries CUDA events and
+    allocates at any moment): every capture succeeds and each graph matches
+    its eager loop."""
+    stop, errors = threading.Event(), []
+
+    def pin():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+                while not stop.is_set():
+                    torch.ones(1 << 14).pin_memory().to(cuda_device, non_blocking=True)
+        except BaseException as exc:
+            errors.append(exc)
+
+    thread = threading.Thread(target=pin, daemon=True)
+    thread.start()
+    try:
+        cfg = BeamConfig(beam_size=4, n_best=2, max_symbols=8)
+        for t in range(8, 24):
+            model, enc, lens = _decode_case(cuda_device, 3, t, seed=t)
+            _assert_same_nbest(beam_search(model, enc, lens, cfg),
+                               beam_search_eager(model, enc, lens, cfg))
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors, errors
+
+
 def _fst_tables(vocab, seed=0, n_states=20):
     """A random backoff LM over the decode model's tokens (ilabel = token +
     1): state 0 a final unigram state, contexts backing off to it."""
@@ -697,3 +728,198 @@ def test_chunked_attention_matches_full_on_card(cuda_device):
     chunked.load_state_dict(full.state_dict())
     with torch.no_grad():
         torch.testing.assert_close(chunked(x, x, x), full(x, x, x), rtol=1e-5, atol=1e-6)
+
+
+# the second-stage recipes on the card: the MBR step (graphed decode with
+# weights that change every step; K1-K3 against the plain loss backend) and
+# LAS rescoring against the CPU
+MBR_BEAM = dict(beam_size=4, n_best=4, sm_scale=1.2, max_symbols=12, prune_dups=False,
+                mm_dtype="auto")
+# a gradient leaf whose largest entry is below this share of the whole
+# gradient's largest is zero to rounding (test_mbr_step_on_kernels_matches_
+# plain_backend; the same rule as chip_smoke.py's hold_gradients)
+ZERO_GRAD = 1e-4
+
+
+def _mbr_case(device):
+    """A small model (made on the CPU, then moved, so its weights do not
+    depend on the card's generator), a batch of features and an SGD step."""
+    from pika_tpu_torch.train.lr import make_optimizer
+    from pika_tpu_torch.train.mbr import make_mbr_step
+
+    model = init_transducer(TransducerConfig(**{**DECODE_MODEL, "dropout": 0.0,
+                                                "tdnn_transformer_dropout": 0.0}),
+                            torch.Generator().manual_seed(0), "cpu").to(device)
+    g = torch.Generator().manual_seed(1)
+    batch = {"feats": torch.randn(3, 40, DECODE_MODEL["input_dim"], generator=g),
+             "feat_lens": torch.tensor([40, 33, 25]),
+             "labels": torch.randint(1, 300, (3, 5), generator=g),
+             "label_lens": torch.tensor([5, 3, 4])}
+    batch = {n: x.to(device) for n, x in batch.items()}
+    opt = make_optimizer(model.parameters(), "sgd", 0.05, 0.05, 10, 0.9, 3.0)
+    step = make_mbr_step(model, opt, lambda x, lens, generator=None: (x, lens),
+                         BeamConfig(**MBR_BEAM), rnnt_scale=0.1, sm_scale=1.2)
+    return model, batch, step
+
+
+def _nbest_of(model, batch, fn):
+    model.eval()
+    with torch.no_grad():
+        enc = model.encode(batch["feats"])
+        return fn(model, enc, model.encoder_out_len(batch["feat_lens"]), BeamConfig(**MBR_BEAM))
+
+
+def test_mbr_graphed_nbest_after_an_update(cuda_device):
+    """After each MBR step (an SGD update of every weight), the captured
+    decode loop refreshes its bf16 copy of the prediction net and joint: its
+    graphed N-best equals the eager loop's on the updated model, and the
+    N-best of the first step's weights is not reused."""
+    model, batch, step = _mbr_case(cuda_device)
+    before = _nbest_of(model, batch, beam_search)
+    for _ in range(2):
+        step(batch, torch.Generator(cuda_device).manual_seed(0))
+        graphed = _nbest_of(model, batch, beam_search)
+        _assert_same_nbest(graphed, _nbest_of(model, batch, beam_search_eager))
+    assert len(model._decode_loops) == 1
+    loop = next(iter(model._decode_loops.values()))
+    assert torch.equal(loop.net.fc2.weight, model.fc2.weight.to(torch.bfloat16))
+    assert not torch.equal(before["scores"], graphed["scores"])
+
+
+def test_mbr_step_on_kernels_matches_plain_backend(cuda_device):
+    """The MBR objective and its gradients with K1-K3 against the plain loss
+    backend on one N-best, at the recipe's rnnt_scale 0.02.  The references
+    are the top hypotheses with their first token replaced, so that the K
+    hypotheses' edit distances differ and the surrogate carries a real
+    share of the gradient (checked).  The objective and the RNN-T term to
+    1e-5 relative; each parameter's gradient to 1e-2 relative L2, except
+    those whose reference gradient is zero to rounding: its largest entry
+    below ZERO_GRAD of the whole gradient's.  The encoder's key biases are
+    such leaves: softmax ignores them, and what is left of their gradient is
+    the rounding of the attention's bf16 probability gradients (3.8e-5 of
+    the largest entry on the card, 5e-5 on the CPU, also with the rest of
+    the model in float64; the least real leaf above 2e-3).
+    On the kernels such a leaf must be zero to rounding by the same rule:
+    its difference held to ZERO_GRAD of the largest entry, absolute.  K1,
+    K2 and K3 launched once each."""
+    from pika_tpu_torch.train.mbr import mbr_losses, mbr_risk
+
+    model, batch, _ = _mbr_case(cuda_device)
+    nbest = _nbest_of(model, batch, beam_search)
+    labels = nbest["tokens"][:, 0].long()
+    labels[:, 0] = labels[:, 0] % (DECODE_MODEL["vocab_size"] - 1) + 1
+    batch["labels"], batch["label_lens"] = labels, nbest["lens"][:, 0].clone()
+    seq_grad = mbr_risk(nbest, batch["labels"], batch["label_lens"])[2]
+    assert seq_grad.abs().max() > 1e-2, seq_grad
+
+    def grads(backend, rnnt_scale):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        for fn in (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w):
+            fn.launches = 0
+        total, metrics = mbr_losses(model, batch["feats"], batch["feat_lens"], batch["labels"],
+                                    batch["label_lens"], nbest, rnnt_scale, 1.2,
+                                    loss_backend=backend)
+        total.backward()
+        return (total.item(), metrics["rnnt_loss"].item(),
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                [fn.launches for fn in (joint_channels, joint_channels_bwd_in,
+                                        joint_channels_bwd_w)])
+
+    (t_k, r_k, g_k, n_k), (t_p, r_p, g_p, n_p) = grads("auto", 0.02), grads("plain", 0.02)
+    surrogate = grads("auto", 0.0)[2]
+    assert n_k == [1, 1, 1] and n_p == [0, 0, 0]
+    assert abs(t_k - t_p) <= 1e-5 * abs(t_p) and abs(r_k - r_p) <= 1e-5 * abs(r_p)
+    whole = torch.cat([g.flatten() for g in g_p.values()])
+    share = torch.cat([g.flatten() for g in surrogate.values()]).norm() / whole.norm()
+    print(f"MBR card case: surrogate's share of the gradient's norm {share.item():.3f}, "
+          f"objective {t_k} vs {t_p}, RNN-T term {r_k} vs {r_p}")
+    assert share > 0.1
+    scale = whole.abs().max().item()
+    least = min((g.abs().max().item(), n) for n, g in g_p.items()
+                if g.abs().max().item() >= ZERO_GRAD * scale)
+    print(f"  the least held leaf: {least[1]} at {least[0] / scale:.2e} of the largest entry")
+    failed = []
+    for name, ref in g_p.items():
+        got = g_k[name]
+        if ref.abs().max().item() < ZERO_GRAD * scale:  # zero to rounding
+            err, tol, rule = (got - ref).abs().max().item(), ZERO_GRAD * scale, "abs"
+        else:
+            err, tol, rule = _rel_l2(got, ref), 1e-2, "rel L2"
+        print(f"  {name}: {rule} {err:.3e} (tol {tol:.3e}), reference max "
+              f"{ref.abs().max().item():.3e}")
+        if err > tol:
+            failed.append((name, rule, err, tol))
+    assert not failed, failed
+
+
+def test_las_loss_with_ctc_on_card_equals_cpu(cuda_device):
+    """``las_loss`` with the CTC auxiliary loss (enc_loss_scale 0.5, label
+    sequences that fit their frames) on the card against the CPU: the loss,
+    both terms and the gradients to 1e-4 relative.  ``F.ctc_loss`` on the
+    card takes ATen's native CUDA route here (int64 targets on the device;
+    cuDNN's route needs int32 targets on the host): its log-alpha kernel
+    runs, and no cuDNN CTC kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pika_tpu_torch.models.las import LASConfig, init_las
+    from pika_tpu_torch.train.las_step import las_loss
+
+    cfg = LASConfig(input_dim=32, output_dim=50, pad_idx=50, rnn_size=64, enc_layers=2,
+                    dec_layers=2, embd_dim=16, brnn=True)
+    cpu = init_las(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_las(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    src = torch.randn(3, 40, 32, generator=g)
+    src_lens = torch.tensor([40, 31, 24])
+    targets = torch.full((3, 9), 50)
+    for i, n in enumerate((7, 3, 5)):  # SOS 0, labels in 2..48, EOS 49, then pad
+        targets[i, :n + 2] = torch.cat([torch.tensor([0]), torch.randint(2, 49, (n,), generator=g),
+                                        torch.tensor([49])])
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss, metrics = las_loss(model, src.to(dev), src_lens.to(dev), targets.to(dev),
+                                     enc_loss_scale=0.5)
+            loss.backward()
+            if model is card:
+                torch.cuda.synchronize()
+        kernels = sorted({e.key for e in prof.key_averages() if "ctc" in e.key.lower()})
+        results.append((loss.item(), metrics["dec_loss"].item(), metrics["enc_loss"].item(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()}, kernels))
+    (l_c, d_c, e_c, g_c, _), (l_g, d_g, e_g, g_g, kernels) = results
+    print(f"CTC on the card: loss {l_g} vs {l_c} (CPU), CTC term {e_g} vs {e_c}; ops and "
+          f"kernels named ctc: {kernels}")
+    assert all(np.isfinite([l_c, e_c]))
+    for got, ref in ((l_g, l_c), (d_g, d_c), (e_g, e_c)):
+        assert abs(got - ref) <= 1e-4 * abs(ref)
+    for name, ref in g_c.items():
+        assert _rel_l2(g_g[name], ref) <= 1e-4, name
+    assert any("ctc_loss_log_alpha" in k for k in kernels), kernels
+    assert "aten::_cudnn_ctc_loss" not in kernels, kernels
+
+
+def test_las_score_hyps_on_card_equals_cpu(cuda_device):
+    """Forward and reversed, with coverage and a bidirectional encoder:
+    the card (float32, TF32 off) against the CPU to 1e-4 relative."""
+    from pika_tpu_torch.decode.rescore import las_score_hyps
+    from pika_tpu_torch.models.las import LASConfig, init_las
+
+    cfg = LASConfig(input_dim=32, output_dim=50, pad_idx=50, rnn_size=64, enc_layers=2,
+                    dec_layers=2, embd_dim=16, brnn=True, coverage_attn=True)
+    cpu = init_las(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_las(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    enc = torch.randn(2, 30, 32, generator=g)
+    enc_lens = torch.tensor([30, 21])
+    tokens = torch.randint(1, 49, (2, 4, 9), generator=g)
+    lens = torch.tensor([[9, 4, 0, 7], [1, 9, 3, 2]])
+    tokens[torch.arange(9)[None, None] >= lens[..., None]] = -1
+    for reverse in (False, True):
+        ref = las_score_hyps(cpu, enc, enc_lens, tokens, lens, 0, 49, reverse)
+        got = las_score_hyps(card, *(x.to(cuda_device) for x in (enc, enc_lens, tokens, lens)),
+                             0, 49, reverse)
+        for r, x in zip(ref, got):
+            torch.testing.assert_close(x.cpu(), r, rtol=1e-4, atol=1e-4)

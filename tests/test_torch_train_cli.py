@@ -264,7 +264,7 @@ BASE = ["data.lst", "log", "out", "--encoder_type", "transformer", "--device", "
     (["--dp_mode", "bmuf"], "item 7"), (["--dp_mode", "blockadam"], "item 7"),
     (["--dp_mode", "bmufadam"], "item 7"), (["--num_processes", "2"], "item 7"),
     (["--num_devices", "2"], "item 7"), (["--pruned_loss_range", "4"], "item 8"),
-    (["--brnn"], "item 6"), (["--decoder_type", "transformer"], "item 9")])
+    (["--brnn"], "item 9"), (["--decoder_type", "transformer"], "item 9")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_main([*BASE, *flags])
