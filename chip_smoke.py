@@ -79,6 +79,17 @@ V=6268, random weights from a seed):
   best hypotheses), the rescoring of the 8 x 8 hypotheses timed and
   profiled at their length and cut to 32 labels, and ``las_score_hyps`` on
   the card against the CPU (2 x 4 hypotheses);
+* distributed training (``dist_path``) on the training CLI's corpus: the
+  recipe's own command line (``--dp_mode bmuf --sync_period 5
+  --block_momentum 0.9 --block_lr 1.0``) at world size 1 over NCCL for 2
+  epochs and a ``--resume`` (the restored ``delta_prev`` and step count
+  against the checkpoint's, K1-K3's launches), BMUF with block momentum 0
+  and block LR 1 after one round against sync after the same 5 batches
+  (random draws off; within twice the spread of two sync runs), a round's
+  sync at the flagship's parameter count against its bytes bound, BMUF in
+  the MBR CLI and BlockAdam and BMUF-Adam in the LAS CLI, and the rnn
+  encoder at the CLI's defaults (steps at 4 x 10 s, a CLI epoch, the
+  decode CLI on its bundle);
 * the flash-attention path (``attn_flash=True``), whose encoder attention
   runs through K4: K4 forward and backward against their plain versions at
   ragged shapes, at the three encoder layers' shapes (B = 8 and 32) and at
@@ -179,6 +190,7 @@ from pika_tpu_torch.train.bundle import load_bundle, save_bundle
 from pika_tpu_torch.train.checkpoint import restore_checkpoint
 import pika_tpu_torch.train.eval_transducer as eval_module
 from pika_tpu_torch.train.eval_transducer import main as eval_main
+from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
 from pika_tpu_torch.train.mbr import (
     make_mbr_step,
@@ -342,6 +354,23 @@ LAS_RTOL = 1e-4
 # trained model's length for 10 s at the corpus' 2.5 labels a second, with
 # room for the beam's spread
 RESCORE_CUT = 32
+# the distributed phase: the recipe's block flags (egs/train_transducer.sh:52)
+# at world size 1 over NCCL; the BMUF(0, 1) = sync hold on HOLD_UTTS
+# utterances of one waveform and one label bucket (5 batches of 8: one
+# round; no padding within it), its tolerance 2 x the spread of two sync
+# runs plus HOLD_ULPS float32 ulps, relative L2 over all the parameters
+# (BMUF's global - (global - local) rounds once); the rnn encoder at the CLI's
+# defaults (2 x 512 bidirectional, frames not subsampled) with the recipe's V
+DIST_FLAGS = ["--dp_mode", "bmuf", "--sync_period", "5", "--block_momentum", "0.9",
+              "--block_lr", "1.0"]
+HOLD_UTTS, HOLD_SECONDS, HOLD_LABELS, HOLD_ULPS = 40, (5.5, 6.0), 14, 4
+SYNC_REPEATS = 10
+OTHER_SYNC_PERIOD = 4  # the MBR and LAS phases' epochs have about 8 batches
+RNN_MODEL_FLAGS = ["--encoder_type", "rnn", "--enc_layers", "2", "--rnn_size", "512", "--brnn",
+                   "--output_dim", str(VOCAB)]
+RNN_MODEL = dict(input_dim=240, vocab_size=VOCAB, hid_dim=512, encoder_type="rnn",
+                 enc_layers=2, brnn=True, dec_layers=2, embd_dim=300, dropout=0.3)
+RNN_BATCH, RNN_LABELS = 4, 25
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -1236,6 +1265,7 @@ def mbr_path(device, paths: dict) -> dict:
 
     t_phase = time.perf_counter()
     data_lst = subset_archive(paths, MBR_UTTS, device)
+    paths["mbr_lst"] = data_lst
     work = os.path.dirname(data_lst)
     loops = {}
     cached = beam_module.cached_loop
@@ -2304,6 +2334,278 @@ def fst_path(device, work: str) -> None:
         f"{time.perf_counter() - t0:.3f} s in all")
 
 
+def line_forms(lines: list) -> set:
+    """The log lines' forms: numbers and the --dp_mode name masked."""
+    return {re.sub(r"\((sync|bmuf|blockadam|bmufadam)\)", "(MODE)",
+                   re.sub(r"[0-9]+(\.[0-9]+)?", "#", x)) for x in lines}
+
+
+def recipe_bmuf(device, paths: dict, work: str) -> None:
+    """The recipe's command line as written (--dp_mode bmuf, --sync_period
+    5, --block_momentum 0.9, --block_lr 1.0) at world size 1 over NCCL: 2
+    epochs with validation (the epoch lines, K1-K3's launches), then
+    --resume to a third (the restored delta_prev and step count against the
+    checkpoint's)."""
+    train_lst = os.path.join(paths["train"], "data.lst")
+    common = [*CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS, *DIST_FLAGS, "--feat_config", paths["fbank"],
+              "--cmvn_stats", paths["stats"], "--device", str(device),
+              "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--log_per_n_frames", "1"]
+    exp = os.path.join(work, "bmuf")
+    log = os.path.join(work, "bmuf.log")
+    reset_launches()
+    lines, _, _ = cli_run("train CLI --dp_mode bmuf", [
+        train_lst, log, exp, *common, "--num_epochs", str(CLI_EPOCHS), "--valid_data_lst",
+        os.path.join(paths["valid"], "data.lst")], log)
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    say(f"train CLI --dp_mode bmuf launches over {CLI_EPOCHS} epochs with validation: "
+        f"{launches}")
+    check(all(n > 0 for n in launches.values()), f"the BMUF CLI launched K1-K3: {launches}")
+    check(any("devices: 1 (bmuf)" in x for x in lines), "BMUF CLI header")
+    check(sum("valid loss/label" in x for x in lines) == CLI_EPOCHS, "BMUF validation lines")
+    check(trained_utts(lines) > 0, "BMUF rounds ran")
+
+    saved = restore_checkpoint(os.path.join(exp, "ckpt"), CLI_EPOCHS - 1, map_location=device)
+    restored = []
+    load = BMUF.load_state_dict
+
+    def recording_load(self, state):
+        load(self, state)
+        restored.append([t.clone() for t in self.state.delta_prev])
+
+    BMUF.load_state_dict = recording_load
+    try:
+        log = os.path.join(work, "bmuf_resume.log")
+        lines, _, _ = cli_run("train CLI --dp_mode bmuf --resume", [
+            train_lst, log, exp, *common, "--num_epochs", str(CLI_EPOCHS + 1), "--resume"], log)
+    finally:
+        BMUF.load_state_dict = load
+    steps = saved["bmuf"]["steps"]
+    check(any(x == f"resumed BMUF state from epoch {CLI_EPOCHS - 1} (step {steps})"
+              for x in lines), f"resumed at the saved step {steps}")
+    saved_dp = saved["bmuf"]["delta_prev"]
+    check(len(restored) == 1 and len(restored[0]) == len(saved_dp) > 0
+          and all(torch.equal(a, b) for a, b in zip(restored[0], saved_dp)),
+          "delta_prev restored")
+    norm = torch.linalg.vector_norm(torch.cat([t.flatten() for t in saved_dp])).item()
+    check(norm > 0, "delta_prev after the saved rounds is not 0")
+    say(f"resume: step {steps} and {len(saved_dp)} delta_prev tensors (norm {norm:.6g}) equal "
+        f"the saved ones: ok")
+
+
+def write_hold_corpus(work: str, device) -> str:
+    """HOLD_UTTS seeded utterances of one waveform bucket (5-10 s) and one
+    label bucket (16): mrk/seq archives through the prep in process; returns
+    the data list."""
+    rng = np.random.default_rng(6)
+    d = os.path.join(work, "hold")
+    os.makedirs(d)
+    with open(os.path.join(d, "wav.scp"), "w") as scp, \
+            open(os.path.join(d, "label.txt"), "w") as lab:
+        for i in range(HOLD_UTTS):
+            path = os.path.join(d, f"h{i}.wav")
+            secs = float(rng.uniform(*HOLD_SECONDS))
+            write_wav(path, (rng.standard_normal(int(SR * secs)) * 3000).astype(np.int16), SR)
+            scp.write(f"h{i} {path}\n")
+            lab.write(f"h{i} " + " ".join(map(str, rng.integers(1, VOCAB, HOLD_LABELS))) + "\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        prep_main(["wav_to_seq", os.path.join(d, "wav.scp"), os.path.join(d, "a.mrk"),
+                   os.path.join(d, "a.seq"), "--device", str(device)])
+    with open(os.path.join(d, "data.lst"), "w") as f:
+        for line in out.getvalue().splitlines():
+            mrk, seq = line.split()
+            f.write(f"{mrk} {seq} ark:{os.path.join(d, 'label.txt')}\n")
+    return os.path.join(d, "data.lst")
+
+
+def bmuf_sync_hold(device, paths: dict, work: str) -> None:
+    """BMUF with --block_momentum 0 --block_lr 1 --momentum 0 after its one
+    round equals sync with --momentum 0 after the same 5 batches, the random
+    draws off (dither 0, no SpecAugment, no speed/gain, dropout 0): the
+    relative L2 distance of all the parameters within 2 x that of two sync
+    runs (the card's training step is not bit for bit repeatable) plus
+    HOLD_ULPS float32 ulps."""
+    data_lst = write_hold_corpus(work, device)
+    conf = os.path.join(work, "fbank_dither0.conf")
+    with open(paths["fbank"]) as f, open(conf, "w") as g:
+        g.write(re.sub(r"--dither=\S+", "--dither=0", f.read()))
+    recipe = [x for x in CLI_RECIPE_FLAGS if x != "--spec_augment"]
+    common = [*CLI_MODEL_FLAGS, *recipe, "--feat_config", conf, "--cmvn_stats", paths["stats"],
+              "--no_augment", "--dropout", "0", "--tdnn_transformer_dropout", "0",
+              "--momentum", "0", "--num_epochs", "1", "--num_batches_per_epoch",
+              str(CLI_BATCHES_PER_EPOCH), "--device", str(device)]
+    runs = {}
+    for tag, name, extra in (("syncA", "sync A", []), ("syncB", "sync B", []),
+                             ("bmuf", "bmuf(0, 1)", ["--dp_mode", "bmuf", "--sync_period", "5",
+                                                     "--block_momentum", "0", "--block_lr",
+                                                     "1"])):
+        log = os.path.join(work, f"hold_{tag}.log")
+        lines, _, _ = cli_run(f"hold {name}", [data_lst, log, os.path.join(work, f"hold_{tag}"),
+                                               *common, *extra], log)
+        check(any(f"{HOLD_UTTS} utts" in x for x in lines), f"hold {name}: {HOLD_UTTS} utterances")
+        model, _ = load_bundle(os.path.join(work, f"hold_{tag}", "model.epoch.0"), "cpu")
+        runs[name] = torch.cat([p.detach().double().flatten() for p in model.parameters()])
+        runs[name + " loss"] = [x.split("\t")[0] for x in lines if "Overall Avg Loss" in x]
+    a, b, m = runs["sync A"], runs["sync B"], runs["bmuf(0, 1)"]
+    norm = torch.linalg.vector_norm(a).item()
+    spread = torch.linalg.vector_norm(b - a).item() / norm
+    diff = torch.linalg.vector_norm(m - a).item() / norm
+    tol = 2 * spread + HOLD_ULPS * float(np.finfo(np.float32).eps)
+    say(f"BMUF(0, 1) vs sync after 5 batches, all {a.numel()} parameters: rel L2 {diff:.3e} "
+        f"(max |diff| {(m - a).abs().max().item():.3e}); spread of two sync runs {spread:.3e} "
+        f"(max {(b - a).abs().max().item():.3e}); tolerance 2 x spread + {HOLD_ULPS} ulps = "
+        f"{tol:.3e}; losses: sync {runs['sync A loss']} and {runs['sync B loss']}, "
+        f"BMUF {runs['bmuf(0, 1) loss']}")
+    check(diff <= tol, "BMUF(0, 1) after one round equals sync after the same batches")
+
+
+def sync_cost(device) -> None:
+    """A round's sync (the all-reduce of the flat buffer and the block
+    update) at the flagship's parameter count, for bmuf and bmufadam, by
+    CUDA events at world size 1 over NCCL, against the bytes it must move
+    over the HBM rate: bmuf reads the global and the local parameters and
+    delta_prev and writes all three (24 bytes a parameter); bmufadam also
+    reads the local Adam moments and the reconciled ones and writes those
+    (48)."""
+    model = init_transducer(TransducerConfig(**FLAGSHIP), torch.Generator(device).manual_seed(0),
+                            device)
+    n = sum(p.numel() for p in model.parameters())
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    with process_group(device):
+        for variant, optim, per_param in (("bmuf", "sgd", 24), ("bmufadam", "adam", 48)):
+            opt = make_optimizer(model.parameters(), optim, **OPTIM)
+            for p in model.parameters():
+                p.grad = torch.randn_like(p) * 1e-3
+            opt.step()  # the local optimizer's state exists, as after a round's steps
+            bmuf = BMUF(model.parameters(), BMUFConfig(variant), buffers=stats)
+            ms = time_ms(lambda: bmuf.sync(opt), warmup=2, iters=SYNC_REPEATS)
+            nbytes = per_param * n + 8 * sum(b.numel() for b in stats)
+            b = bound(0.0, nbytes, PEAK_F32)
+            say(f"{variant} sync at the flagship's {n} parameters ({4 * n / 2**20:.1f} MiB): "
+                f"{ms:.3f} ms (CUDA events, {SYNC_REPEATS} syncs), bound {b['bound_ms']:.3f} ms "
+                f"({nbytes / 1e9:.3f} GB at 3.35 TB/s; {b['bound_ms'] / ms:.1%})")
+            del bmuf, opt
+    del model
+    torch.cuda.empty_cache()
+
+
+def trained_utts(lines: list) -> int:
+    """The utterances of a CLI log's epoch lines."""
+    return sum(int(m.group(1)) for x in lines for m in [re.search(r", (\d+) utts,", x)] if m)
+
+
+def bmuf_other_clis(device, paths: dict) -> None:
+    """--dp_mode bmuf in the MBR CLI (one epoch on its subset) and
+    --dp_mode blockadam and bmufadam in the LAS CLI with the recipe's Adam
+    (one epoch each), rounds of OTHER_SYNC_PERIOD batches (these epochs have
+    about 8): finite losses, rounds that ran, and the sync runs' log-line
+    forms."""
+    work = os.path.dirname(paths["mbr_lst"])
+    with open(os.path.join(work, "mbr.log")) as f:
+        sync_forms = line_forms(f.read().splitlines())
+    log = os.path.join(work, "mbr_bmuf.log")
+    lines, _, _ = cli_run("MBR CLI --dp_mode bmuf", [
+        paths["mbr_lst"], log, os.path.join(work, "mbr_bmuf"), *MBR_FLAGS, "--num_epochs", "1",
+        "--dp_mode", "bmuf", "--sync_period", str(OTHER_SYNC_PERIOD), "--init_model", paths["bundle"], "--feat_config", paths["fbank"],
+        "--cmvn_stats", paths["stats"], "--device", str(device)], log, mbr_main)
+    extra = line_forms(lines) - sync_forms
+    check(not extra, f"MBR bmuf log lines of the sync forms: {extra}")
+    check(trained_utts(lines) > 0, "MBR bmuf: rounds ran")
+    las_work = os.path.join(os.path.dirname(paths["train"]), "las")
+    with open(os.path.join(las_work, "fw.log")) as f:
+        sync_forms = line_forms(f.read().splitlines())
+    for mode in ("blockadam", "bmufadam"):
+        log = os.path.join(las_work, f"{mode}.log")
+        lines, _, _ = cli_run(f"LAS CLI --dp_mode {mode}", [
+            os.path.join(paths["train"], "data.lst"), log, os.path.join(las_work, mode),
+            *LAS_FLAGS, "--dp_mode", mode, "--sync_period", str(OTHER_SYNC_PERIOD), "--feat_config", paths["fbank"], "--cmvn_stats",
+            paths["stats"], "--shared_encoder_model", paths["bundle"], "--device", str(device)],
+            log, las_main)
+        extra = line_forms(lines) - sync_forms
+        check(not extra, f"LAS {mode} log lines of the sync forms: {extra}")
+        check(trained_utts(lines) > 0, f"LAS {mode}: rounds ran")
+
+
+def rnn_encoder_path(device, paths: dict, work: str) -> None:
+    """The rnn encoder at the CLI's defaults (--enc_layers 2 --rnn_size 512
+    --brnn) with the recipe's V and stride 1: one eval and one training step
+    at RNN_BATCH x 10 s (the lattice at T' = T through K1-K3; the LSTMs are
+    host loops), the training CLI for one epoch, and the decode CLI on its
+    bundle (beam 8, graphed)."""
+    batch = flagship_batch(device, RNN_BATCH, labels=RNN_LABELS)
+    model, step = train_setup(device, batch, **RNN_MODEL)
+    featurizer = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=0.0, **FBANK),
+                                                  max_samples=SR * SECONDS, lctx=1, rctx=1),
+                                 device=device)
+    eval_step = make_eval_step(model, featurizer)
+    feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+    t_out = model.encoder_out_len(feat_lens)
+    check(torch.equal(t_out, feat_lens), "rnn encoder: T' = T")
+    for what, fn in (("eval step", lambda: eval_step(batch)["loss"].item()),
+                     ("train step", lambda: step(batch, gen)["loss"].item())):
+        gen = torch.Generator(device).manual_seed(1)
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = fn()
+        wall = time.perf_counter() - t0
+        launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                    "K3": joint_channels_bwd_w.launches}
+        say(f"rnn encoder {what} at {RNN_BATCH} x {SECONDS} s (T' = {int(t_out.max())}, "
+            f"{RNN_LABELS} labels, V {VOCAB}): {wall:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, loss {loss:.4f}, "
+            f"launches {launches}")
+        check(math.isfinite(loss), f"rnn encoder {what}: finite loss")
+        check(launches["K1"] == 1, f"rnn encoder {what}: one K1 launch ({launches})")
+    del model, step, eval_step
+    torch.cuda.empty_cache()
+
+    log = os.path.join(work, "rnn.log")
+    cli_run("train CLI --encoder_type rnn --brnn", [
+        os.path.join(paths["train"], "data.lst"), log, os.path.join(work, "rnn"),
+        *RNN_MODEL_FLAGS, *CLI_RECIPE_FLAGS, "--feat_config", paths["fbank"], "--cmvn_stats",
+        paths["stats"], "--num_epochs", "1", "--num_batches_per_epoch",
+        str(CLI_BATCHES_PER_EPOCH), "--device", str(device)], log)
+    valid = paths["valid"]
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        wer = eval_main([os.path.join(work, "rnn", "model.epoch.0"),
+                         os.path.join(valid, "wav.scp"), os.path.join(work, "rnn_nbest.txt"),
+                         "--beam_size", str(BEAM), "--n_best", str(NBEST),
+                         "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1),
+                         "--feat_config", paths["fbank"], "--cmvn_stats", paths["stats"],
+                         "--ref_labels", f"ark:{os.path.join(valid, 'label.txt')}",
+                         "--device", str(device)])
+    with open(os.path.join(work, "rnn_nbest.txt")) as f:
+        n_lines = len(f.read().splitlines())
+    for line in err.getvalue().splitlines():
+        say(f"decode CLI on the rnn bundle: {line}")
+    check(n_lines == CLI_UTTS["valid"] * NBEST and wer is not None,
+          f"decode CLI on the rnn bundle: {n_lines} N-best lines")
+    say(f"decode CLI on the rnn bundle: {time.perf_counter() - t0:.3f} s, {n_lines} N-best "
+        f"lines, WER {wer:.4f} (one epoch on noise: printed, not judged)")
+
+
+def dist_path(device, paths: dict) -> None:
+    """The distributed training phase on the training CLI's corpus: the
+    recipe's BMUF command line over NCCL with --resume, the BMUF(0, 1) =
+    sync hold, the sync's cost against its bound, BMUF in the MBR and LAS
+    CLIs, and the rnn encoder."""
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(paths["train"]), "dist")
+    os.makedirs(work)
+    recipe_bmuf(device, paths, work)
+    bmuf_sync_hold(device, paths, work)
+    sync_cost(device)
+    bmuf_other_clis(device, paths)
+    rnn_encoder_path(device, paths, work)
+    say(f"distributed phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the GPU only",
@@ -2347,6 +2649,7 @@ def main() -> int:
     cli_launches, cli_paths = train_cli_path(device, os.path.join(work, "train_cli"))
     mbr_launches = mbr_path(device, cli_paths)
     las_path(device, cli_paths)
+    dist_path(device, cli_paths)
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)

@@ -15,6 +15,7 @@ the torch modules here carry the flax module names.  Layout rules:
                                    -> ``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}`` (4H, H),
                                       ``bias_l{k}``; gate order i, f, g, o on both sides;
                                       ``l{k}_d1_*`` -> the same with the suffix ``_reverse``
+                                      (the prediction net, the rnn encoder, the LAS LSTMs)
 * SRU cell ``weight`` (in, k*n_out*dirs), ``bias``
                                    -> the same names and layouts
 * LAS decoder leaves ``dec_cell_{i}_{wih,whh,b}``, ``attn_*``, ``gate_*``

@@ -14,7 +14,6 @@ All ops are pure functions over float32 arrays on the host.
 from __future__ import annotations
 
 import numpy as np
-from scipy import signal as _signal
 
 
 def to_float32(samples: np.ndarray) -> np.ndarray:
@@ -106,8 +105,10 @@ def resample(samples: np.ndarray, orig_rate: int, target_rate: int) -> np.ndarra
         return samples
     from math import gcd
 
+    from scipy import signal  # imported where used: it takes seconds
+
     g = gcd(orig_rate, target_rate)
-    return _signal.resample_poly(samples, target_rate // g, orig_rate // g).astype(np.float32)
+    return signal.resample_poly(samples, target_rate // g, orig_rate // g).astype(np.float32)
 
 
 def pad_silence(samples: np.ndarray, sample_rate: int, duration: float, sides: str = "both") -> np.ndarray:
@@ -162,7 +163,9 @@ def random_subsegment(samples: np.ndarray, sample_rate: int, subsegment_length: 
 
 def convolve(samples: np.ndarray, impulse: np.ndarray) -> np.ndarray:
     """RIR convolution ('same' mode FFT convolution)."""
-    return _signal.fftconvolve(samples, impulse, "same").astype(np.float32)
+    from scipy import signal
+
+    return signal.fftconvolve(samples, impulse, "same").astype(np.float32)
 
 
 def convolve_and_normalize(samples: np.ndarray, impulse: np.ndarray) -> np.ndarray:

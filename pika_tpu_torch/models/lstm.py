@@ -10,8 +10,8 @@ outputs there are 0 (the reference's packed sequences); the backward
 direction reverses each sequence within its length.  In train mode,
 dropout of ``dropout`` acts between layers, never after the last one, with
 masks drawn from the generator passed to ``forward``.  The prediction net
-runs it unidirectional and unmasked; the LAS encoder and downsampler
-bidirectional and masked.
+runs it unidirectional and unmasked; the transducer's rnn encoder, the LAS
+encoder and downsampler masked, bidirectional where configured.
 """
 
 from __future__ import annotations

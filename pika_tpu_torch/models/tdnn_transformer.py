@@ -26,6 +26,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 
 from pika_tpu_torch.models.transformer import TransformerEncoderLayer, checkpoint_with_generator
@@ -39,17 +41,23 @@ def _conv_out_len(length, kernel: int, dilation: int, stride: int):
     return (length - extent) // stride + 1
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+def _bn(x: torch.Tensor, bn: nn.BatchNorm1d, group=None) -> torch.Tensor:
     """BatchNorm over the channel axis of a (B, T, C) tensor, as flax's
     ``nn.BatchNorm``; in train mode it also updates bn's running statistics
     in place.  In train mode the statistics and the normalization are
     computed in float32 and the result cast to x's dtype, as flax does for
-    a bf16 input (the running statistics stay float32)."""
+    a bf16 input (the running statistics stay float32).  With a process
+    ``group`` the train-mode moments are those of the batch of every rank
+    (each holding the same (B, T)), all-reduced with autograd, as flax's
+    over a batch sharded on the mesh."""
     if not bn.training:
         return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
     flat = x.reshape(-1, x.shape[-1]).float()
-    mean = flat.mean(dim=0)
-    var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)  # flax's fast variance
+    moments = torch.stack([flat.mean(dim=0), (flat * flat).mean(dim=0)])
+    if group is not None:
+        moments = dist_nn.all_reduce(moments, group=group) / dist.get_world_size(group)
+    mean, mean_sq = moments
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)  # flax's fast variance
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
@@ -67,6 +75,7 @@ class TDNNTransformerEncoder(nn.Module):
             raise ValueError("tdnn_layers must be > 4")
         self.tdnn_layers = tdnn_layers
         self.remat = remat
+        self.moments_group = None  # parallel/dp.py:global_batch_norm
         self.filter_size = filter_size
         nhid = tdnn_nhid
         self.fc_in = nn.Linear(input_dim, nhid, device=device)
@@ -108,12 +117,13 @@ class TDNNTransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, input_dim) -> (B, T', output_dim); dropout masks in train
         mode come from ``generator``."""
-        x = _bn(torch.relu(self.fc_in(x)), self.bn_in)
+        g = self.moments_group
+        x = _bn(torch.relu(self.fc_in(x)), self.bn_in, g)
         t_layer = 0
         for l in range(self.tdnn_layers):
             conv = getattr(self, f"conv_{l}")
             x = torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
-            x = _bn(x, getattr(self, f"bn_{l}"))
+            x = _bn(x, getattr(self, f"bn_{l}"), g)
             if (l + 1) % 3 == 0 and t_layer < self.n_transformers:
                 layer = getattr(self, f"transformer_{t_layer}")
                 if self.remat:
@@ -122,4 +132,4 @@ class TDNNTransformerEncoder(nn.Module):
                 else:
                     x = layer(x, generator=generator)
                 t_layer += 1
-        return self.fc_out(_bn(x, self.bn_final))
+        return self.fc_out(_bn(x, self.bn_final, g))

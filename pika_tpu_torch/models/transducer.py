@@ -1,5 +1,5 @@
-"""RNN-Transducer: TDNN-Transformer encoder + LSTM prediction net + gated,
-factorized joint (port of ``pika_tpu/models/transducer.py``).
+"""RNN-Transducer: TDNN-Transformer or LSTM encoder + LSTM prediction net +
+gated, factorized joint (port of ``pika_tpu/models/transducer.py``).
 
 Joint:  h(t, u) = tanh(fc1_x x_t + fc1_y y_u) * sigmoid(gate_x x_t + gate_y y_u)
         z(t, u) = W2 h(t, u) + b2
@@ -11,11 +11,17 @@ prepended to the labels before the prediction net.
 ``attn_chunk``, ``attn_cheap_dropout`` and ``remat`` are the encoder's
 (``models/tdnn_transformer.py``).
 
-Train mode is the module's own (``model.train()``): the encoder's BatchNorm
-takes batch statistics and updates its running ones, its transformer layers
-drop out with ``tdnn_transformer_dropout`` and the prediction net between
-its LSTM layers with ``dropout``, drawing their masks from the generator
-passed to ``encode`` and ``predict``.
+The ``rnn`` encoder (``encoder_type="rnn"``, the JAX package's default) is
+an ``enc_layers`` LSTM of width ``hid_dim`` over the frames, bidirectional
+with ``brnn`` (half the width each way), masked by the frame lengths; it
+does not subsample, so ``encoder_out_len`` is the identity.
+
+Train mode is the module's own (``model.train()``): the TDNN encoder's
+BatchNorm takes batch statistics and updates its running ones, its
+transformer layers drop out with ``tdnn_transformer_dropout``, and the LSTMs
+(the rnn encoder's, the prediction net's) between their layers with
+``dropout``, drawing their masks from the generator passed to ``encode``
+and ``predict``.
 """
 
 from __future__ import annotations
@@ -69,21 +75,26 @@ class Transducer(nn.Module):
     def __init__(self, config: TransducerConfig, device=None):
         super().__init__()
         cfg = config
-        if cfg.encoder_type != "tdnn_transformer" or cfg.decoder_type != "rnn":
+        if cfg.decoder_type != "rnn":
             raise NotImplementedError(
-                f"encoder {cfg.encoder_type!r} / decoder {cfg.decoder_type!r}: only "
-                "tdnn_transformer + rnn is ported (the rnn encoder and the transformer "
-                "prediction net are ROADMAP Queue 1 item 9)")
+                f"decoder {cfg.decoder_type!r}: the transformer prediction net is not ported "
+                "yet: ROADMAP Queue 1 item 9")
+        if cfg.encoder_type not in ("rnn", "tdnn_transformer"):
+            raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
         if cfg.simple_joint:
             raise NotImplementedError("simple_joint (the pruned loss's heads) is not ported yet: "
                                       "ROADMAP Queue 1 item 8")
         self.config = cfg
         h = cfg.hid_dim
-        self.encoder = TDNNTransformerEncoder(
-            cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
-            transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
-            attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
-            remat=cfg.remat, device=device)
+        if cfg.encoder_type == "rnn":
+            self.encoder = LSTM(cfg.input_dim, h, cfg.enc_layers, cfg.dropout,
+                                bidirectional=cfg.brnn, device=device)
+        else:
+            self.encoder = TDNNTransformerEncoder(
+                cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
+                transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
+                attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
+                remat=cfg.remat, device=device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
         self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, cfg.dropout, device=device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
@@ -94,12 +105,17 @@ class Transducer(nn.Module):
 
     def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, T, D) -> (B, T', H).  ``x_len`` is unused: the TDNN encoder
-        sees the padded frames, as the JAX encoder does.  Train mode draws
-        dropout masks from ``generator``."""
+        """(B, T, D) -> (B, T', H).  The rnn encoder masks by ``x_len``
+        (outputs 0 past each length); the TDNN encoder sees the padded
+        frames, as the JAX encoder does.  Train mode draws dropout masks
+        from ``generator``."""
+        if self.config.encoder_type == "rnn":
+            return self.encoder(x, generator, lengths=x_len)[0]
         return self.encoder(x, generator=generator)
 
     def encoder_out_len(self, x_len):
+        if self.config.encoder_type == "rnn":
+            return x_len
         return self.encoder.output_length(x_len)
 
     def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,

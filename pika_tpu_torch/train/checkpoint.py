@@ -4,7 +4,9 @@
 ``directory/<step>/state.pt`` holds the model's state dict (BatchNorm
 statistics included), the optimizer's (``train/lr.py:Optimizer``: momentum
 and the schedule's ``count``) and the metadata (``{"epoch": N}``), so a
-resume continues exactly.  The file is written under a temporary name and
+resume continues exactly; a BMUF run's also its block state (the global
+parameters are the model's; ``delta_prev``, the Adam moments, the counts,
+``rho``) and ``steps``, the global batches done.  The file is written under a temporary name and
 moved into place with ``os.replace``: a run killed mid-write leaves the
 previous checkpoint readable.
 """
@@ -20,21 +22,25 @@ STATE = "state.pt"
 
 
 def save_checkpoint(directory: str, step: int, model_state: dict, optimizer_state: dict,
-                    metadata: Optional[dict] = None) -> str:
-    """Write ``directory/step/state.pt`` from host or device state dicts;
-    returns the step's directory."""
+                    metadata: Optional[dict] = None, bmuf_state: Optional[dict] = None) -> str:
+    """Write ``directory/step/state.pt`` from host or device state dicts
+    (with ``bmuf_state``, a BMUF run's ``BMUF.state_dict()`` and its
+    ``steps``); returns the step's directory."""
     path = os.path.join(os.path.abspath(directory), str(step))
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE + ".tmp")
-    torch.save({"model": model_state, "optimizer": optimizer_state,
-                "metadata": metadata or {}}, tmp)
+    state = {"model": model_state, "optimizer": optimizer_state, "metadata": metadata or {}}
+    if bmuf_state is not None:
+        state["bmuf"] = bmuf_state
+    torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, STATE))
     return path
 
 
 def restore_checkpoint(directory: str, step: Optional[int] = None, map_location=None) -> dict:
-    """``{"model", "optimizer", "metadata"}`` of ``directory/step`` (the
-    newest step when none is given); raises FileNotFoundError without one."""
+    """``{"model", "optimizer", "metadata"[, "bmuf"]}`` of ``directory/step``
+    (the newest step when none is given); raises FileNotFoundError without
+    one."""
     directory = os.path.abspath(directory)
     if step is None:
         steps = ([int(d) for d in os.listdir(directory)

@@ -1,14 +1,16 @@
 """CLI plumbing shared by the entry points (port of
 ``pika_tpu/train/common.py``): the JAX CLIs' flag surface, and the builders
 that turn parsed flags into featurizers, loader configurations and
-optimizers.  Multi-host initialisation is not ported (ROADMAP Queue 1
-item 7); ``--rng_impl`` is kept only as the policy behind
-``--attn_cheap_dropout auto`` (``resolve_rng_impl``)."""
+optimizers, and the launch of the ranks of a distributed run
+(``launch``, the counterpart of ``maybe_distributed_init``).
+``--rng_impl`` is kept only as the policy behind ``--attn_cheap_dropout
+auto`` (``resolve_rng_impl``)."""
 
 from __future__ import annotations
 
 import argparse
-from typing import Iterable, Optional
+import os
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -16,6 +18,7 @@ from pika_tpu_torch.data.cmvn import CmvnStats, offset_scale
 from pika_tpu_torch.data.loader import OtfLoaderConfig
 from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.features.fbank import FbankConfig
+from pika_tpu_torch.parallel.mesh import free_port, process_group, rank, world_size
 from pika_tpu_torch.train.lr import make_optimizer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_feats_featurizer
 
@@ -119,9 +122,8 @@ def resolve_cheap_dropout(args) -> bool:
 
 
 def add_train_args(parser: argparse.ArgumentParser) -> None:
-    """Training flags, the JAX CLI's set (the multi-process and
-    block-strategy ones included, so its command lines parse; the training
-    CLI raises on the values whose paths are not ported)."""
+    """Training flags, the JAX CLI's set (the training CLI raises on the
+    values whose paths are not ported)."""
     parser.add_argument("--init_model", type=str, default=None)
     parser.add_argument("--cmn", action="store_true")
     parser.add_argument("--cmvn_stats", type=str, default=None)
@@ -144,7 +146,9 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--dp_mode", type=str, default="sync",
                         choices=["sync", "bmuf", "blockadam", "bmufadam"])
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="number of cards (the port trains on one)")
+                        help="cards of the whole run, one rank each (default: every visible "
+                             "card of every process; with --device cpu one CPU rank per "
+                             "process)")
     parser.add_argument("--block_momentum", type=float, default=0.9)
     parser.add_argument("--block_lr", type=float, default=1.0)
     parser.add_argument("--sync_period", type=int, default=5)
@@ -178,20 +182,84 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--process_id", type=int, default=0)
 
 
-def check_single_card(args) -> None:
-    """The multi-card and multi-process modes raise, naming their ROADMAP
-    item, instead of being ignored."""
-    unported = [
-        (args.dp_mode != "sync",
-         f"--dp_mode {args.dp_mode} (BMUF and the block strategies): ROADMAP Queue 1 item 7"),
-        (args.num_processes > 1 or bool(args.coordinator_address),
-         "--num_processes > 1 and --coordinator_address (multi-host): ROADMAP Queue 1 item 7"),
-        ((args.num_devices or 1) > 1,
-         "--num_devices > 1 (data parallelism over cards): ROADMAP Queue 1 item 7"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+def plan_launch(args) -> tuple[torch.device, int, int, int]:
+    """(device, world size, ranks on this process's host, first rank here)
+    of the command line, the JAX CLIs' interface: ``--num_devices N`` counts
+    the cards of the whole run (by default every visible card of every
+    process; one CPU worker per process with ``--device cpu``);
+    ``--coordinator_address host:port --num_processes P --process_id i``
+    gives each of the P processes N/P ranks, ``i * N/P`` onwards."""
+    device = resolve_device(args.device)
+    n_proc = args.num_processes
+    if n_proc > 1 and not args.coordinator_address:
+        raise ValueError("--num_processes > 1 needs --coordinator_address host:port")
+    if not 0 <= args.process_id < n_proc:
+        raise ValueError(f"--process_id {args.process_id} outside 0..{n_proc - 1}")
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    world = args.num_devices or visible * n_proc
+    if world < 1 or world % n_proc:
+        raise ValueError(f"--num_devices {world} does not split over {n_proc} processes")
+    local = world // n_proc
+    if device.type == "cuda" and local > visible:
+        raise ValueError(f"--num_devices {world}: {local} cards per process, but only "
+                         f"{visible} visible")
+    return device, world, local, args.process_id * local
+
+
+def launch(args, worker: Callable) -> None:
+    """Run ``worker(args, device)`` on each rank this process owns
+    (``plan_launch``), inside the default process group: NCCL on the card,
+    gloo on the CPU; the device decides.  One rank runs in this process,
+    more in worker processes started with ``spawn``, each on
+    ``cuda:local_rank`` (or the CPU); a worker that fails makes this
+    process fail too.  Sync training on one rank needs no process group and
+    gets none; BMUF's collective runs in a world of one too."""
+    device, world, local, first = plan_launch(args)
+    init = f"tcp://{args.coordinator_address}" if args.coordinator_address else None
+    if local == 1:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if world == 1 and args.dp_mode == "sync":
+            worker(args, device)
+            return
+        with process_group(device, first, world, init):
+            worker(args, device)
+        return
+    init = init or f"tcp://127.0.0.1:{free_port()}"
+    try:
+        torch.multiprocessing.start_processes(
+            _run_rank, args=(args, worker, device.type, world, first, init,
+                             torch.get_num_threads()),
+            nprocs=local, join=True, start_method="spawn")
+    except torch.multiprocessing.ProcessExitedException as exc:
+        raise SystemExit(exc.exit_code or 1) from exc
+
+
+def _run_rank(local_rank: int, args, worker: Callable, device_type: str, world: int,
+              first: int, init: str, threads: int) -> None:
+    """A spawned worker: rank ``first + local_rank`` of ``world``."""
+    torch.set_num_threads(threads)
+    device = torch.device(device_type, local_rank) if device_type == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    with process_group(device, first + local_rank, world, init):
+        worker(args, device)
+
+
+def open_log(args):
+    """This rank's log: ``WORKER-ID`` in ``--log`` becomes the rank; ranks
+    other than 0 of a path without it write nowhere."""
+    r = rank()
+    if r and "WORKER-ID" not in args.log:
+        return open(os.devnull, "w")
+    return open(args.log.replace("WORKER-ID", str(r)), "w")
+
+
+def seed_for(args, epoch: int) -> int:
+    """The seed of a rank's epoch generator: ``--seed + epoch`` in a world
+    of one, distinct per rank otherwise."""
+    return (args.seed + epoch) * world_size() + rank()
 
 
 def add_utt_loader_args(parser: argparse.ArgumentParser) -> None:

@@ -50,6 +50,8 @@ class Optimizer:
     ``state_dict()`` / ``load_state_dict()`` carry the wrapped optimizer's
     state (momentum buffers, Adam moments) and ``count``, the schedule's
     step, so a restored optimizer continues both where they were.
+    ``restart(count)`` is a fresh optimizer fast-forwarded to ``count``,
+    BMUF's local optimizer at the start of a round.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], optim: str,
@@ -62,8 +64,9 @@ class Optimizer:
         lr0 = schedule(0)
         if optim == "sgd":
             # optax.sgd(nesterov=True): trace = g + m * trace; update = g + m * trace
+            # (plain SGD at m = 0, where torch allows no Nesterov flag)
             self.opt = torch.optim.SGD(self.params, lr=lr0, momentum=momentum, dampening=0.0,
-                                       nesterov=True)
+                                       nesterov=momentum > 0)
         elif optim == "adam":
             self.opt = torch.optim.Adam(self.params, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
         elif optim == "adadelta":
@@ -77,6 +80,29 @@ class Optimizer:
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["optimizer"])
         self.count = int(state["count"])
+
+    def restart(self, count: int) -> None:
+        """A fresh state, as the JAX BMUF round's local optimizer
+        (``parallel/bmuf.py``): ``tx.init`` fast-forwarded by
+        ``tree_set(..., count=count)`` where the chain holds one ``count``
+        (sgd, adadelta: the schedule's), so the schedule continues from
+        ``count`` while the Nesterov trace and Adadelta's accumulators start
+        at 0.  Adam's chain holds two (its own and the schedule's), so
+        optax's ``tree_get`` raises, the round skips the fast-forward, and
+        Adam restarts at step 0 every round: its schedule and bias
+        correction too."""
+        self.opt.state.clear()
+        self.count = 0 if isinstance(self.opt, torch.optim.Adam) else int(count)
+
+    def adam_moments(self):
+        """(first moments, second moments) of Adam, one tensor per
+        parameter (zeros where no gradient has reached one yet, as optax's
+        zero-initialised moments); raises for another optimizer."""
+        if not isinstance(self.opt, torch.optim.Adam):
+            raise ValueError("optimizer state has no Adam moments")
+        state = [self.opt.state.get(p) or {} for p in self.params]
+        return tuple([s.get(k, torch.zeros_like(p)) for s, p in zip(state, self.params)]
+                     for k in ("exp_avg", "exp_avg_sq"))
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)

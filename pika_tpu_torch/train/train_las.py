@@ -1,5 +1,4 @@
-"""LAS rescorer training CLI (port of ``pika_tpu/train/train_las.py``,
-``--dp_mode sync`` on one card):
+"""LAS rescorer training CLI (port of ``pika_tpu/train/train_las.py``):
 
     python -m pika_tpu_torch.train.train_las DATA_LST LOG OUTPUT_DIR \\
         --shared_encoder_model RNNT_BUNDLE --SOS 0 --EOS 6268 --padding_tgt 6269 \\
@@ -21,9 +20,13 @@ losses read every 8 steps; ``model.epoch.N`` bundles of kind ``las`` with
 the metadata the decode CLI reads (``reverse_labels``, ``las_input``).  The
 log lines are the JAX CLI's.
 
+Distribution is the training CLI's (``train_transducer.py``): ranks from
+``common.launch`` on their own rows of the global batch; ``--dp_mode sync``
+sums the gradients over the ranks, the BMUF modes run rounds of
+``--sync_period`` local steps (labels padded with the pad index to the
+round's widest) and a block update.  Rank 0 writes the bundles.
+
 ``--lambda_coverage`` is parsed and unused, as in the JAX CLI.
-``--dp_mode`` bmuf/blockadam/bmufadam and more than one process or card
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from pika_tpu_torch.data.loader import prefetch_iter
-from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.parallel import SumGradients, barrier, rank, replicate, world_size
 from pika_tpu_torch.models.las import LASConfig, init_las
 from pika_tpu_torch.train import common
 from pika_tpu_torch.train.bundle import load_bundle, save_bundle
@@ -43,7 +47,10 @@ from pika_tpu_torch.train.las_step import make_las_train_step
 from pika_tpu_torch.train.train_transducer import (
     DRAIN_EVERY,
     batch_stream,
-    host_batch,
+    group_rounds,
+    make_bmuf,
+    pad_round,
+    rank_batch,
     to_device,
 )
 from pika_tpu_torch.utils.logger import Logger
@@ -85,22 +92,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    common.check_single_card(args)
-    device = resolve_device(args.device)
-    with open(args.log.replace("WORKER-ID", "0"), "w") as log_f:
+    common.launch(args, run)
+
+
+def run(args, device: torch.device) -> None:
+    """One rank of ``main``: its log, then ``train``."""
+    with common.open_log(args) as log_f:
         train(args, device, log_f)
 
 
 def train(args, device: torch.device, log_f) -> None:
-    """The run of ``main`` after parsing, logging to ``log_f``."""
+    """The run of ``main`` on one rank after parsing, logging to ``log_f``."""
     pin = device.type == "cuda"
+    r, w = rank(), world_size()
     if args.loader == "utt":
         if not args.ali_rspec:
             sys.exit("--loader utt requires --ali_rspec (ark:label.txt)")
         featurizer, input_dim = common.feats_featurizer_from_args(args, device=device)
     else:
         featurizer, input_dim, _ = common.featurizer_from_args(args, device=device)
-    loader_cfg = common.loader_cfg_from_args(args)
+    loader_cfg = common.loader_cfg_from_args(args, batch_size=args.batch_size * w)
 
     shared = None
     if args.shared_encoder_model:
@@ -119,19 +130,27 @@ def train(args, device: torch.device, log_f) -> None:
             context_gate=args.context_gate, use_downsampler=args.use_downsampler,
             downsampler_layers=args.downsampler_layers, downsampler_rate=args.downsampler_rate)
         model = init_las(cfg, torch.Generator(device).manual_seed(args.seed), device)
+        replicate(model.state_dict().values())
     optimizer = common.optimizer_from_args(args, model.parameters())
+    bmuf = None
+    if args.dp_mode != "sync":
+        bmuf = make_bmuf(args, model, buffers=False)
+    elif w > 1:
+        optimizer = SumGradients(optimizer)
     step = make_las_train_step(model, optimizer, featurizer, shared, args.dec_loss_scale,
                                args.enc_loss_scale, args.pretrain_decoder)
-    log_f.write(f"LAS training: devices 1 ({args.dp_mode}), processes 1\n")
+    log_f.write(f"LAS training: devices {w} ({args.dp_mode}), "
+                f"processes {args.num_processes}\n")
     log_f.flush()
 
     sampling_prob = args.sampling_prob
+    step_count = 0
     for epoch in range(args.num_epochs):
         if args.sampling_decoder and epoch >= args.increase_sampling_prob_epoch:
             sampling_prob = min(0.4, sampling_prob + 0.1)  # the scheduled-sampling ramp
         log_f.write(f"===> Epoch {epoch} (sampling_prob {sampling_prob}) <===\n")
         logger = Logger(log_f, args.log_per_n_frames, ["Loss"])
-        generator = torch.Generator(device).manual_seed(args.seed + epoch)
+        generator = torch.Generator(device).manual_seed(common.seed_for(args, epoch))
         pending = []  # device metrics, read every DRAIN_EVERY steps
         t_epoch = time.perf_counter()
         n_utts = 0
@@ -140,17 +159,36 @@ def train(args, device: torch.device, log_f) -> None:
             if not pending:
                 return
             rows = torch.stack([torch.stack([m["num_labels"].float(), m["loss"]])
-                                for m in pending]).cpu().tolist()
-            for n_labels, loss in rows:
+                                for m in pending])
+            if w > 1:
+                dist.all_reduce(rows)  # the global batch's sums
+            for n_labels, loss in rows.cpu().tolist():
                 logger.update_and_log(int(n_labels), [loss])
             pending.clear()
 
-        for host in prefetch_iter(batch_stream(args, loader_cfg, epoch),
-                                  transform=lambda b: host_batch(b, pin)):
-            pending.append(step(to_device(host, device), generator, sampling_prob))
-            n_utts += loader_cfg.batch_size
-            if len(pending) >= DRAIN_EVERY:
-                drain()
+        def local_step(host, sp=sampling_prob):
+            return step(to_device(host, device), generator, sp)
+
+        stream = batch_stream(args, loader_cfg, epoch)
+        if bmuf is None:
+            for host in prefetch_iter(stream, transform=lambda b: rank_batch(b, pin)):
+                pending.append(local_step(host))
+                n_utts += loader_cfg.batch_size
+                if len(pending) >= DRAIN_EVERY:
+                    drain()
+        else:
+            pad = {"labels": model.config.pad_idx}
+            for host in prefetch_iter(group_rounds(stream, args.sync_period),
+                                      transform=lambda g: [rank_batch(b, pin)
+                                                           for b in pad_round(g, pad)]):
+                ok, metrics = bmuf.round(optimizer, local_step, host, step_count)
+                step_count += args.sync_period
+                n_utts += loader_cfg.batch_size * args.sync_period
+                if not ok:
+                    log_f.write("NaN detected in BMUF sync — stopping\n")
+                    sys.exit(1)
+                logger.update_and_log(int(metrics["num_labels"].sum()),
+                                      [float(metrics["loss"].sum())])
         drain()
         logger.summarize_and_log()
         if device.type == "cuda":
@@ -158,10 +196,13 @@ def train(args, device: torch.device, log_f) -> None:
         dt = time.perf_counter() - t_epoch
         log_f.write(f"===> Epoch {epoch} wall {dt:.1f}s, {n_utts} utts, "
                     f"{n_utts / max(dt, 1e-9):.1f} utt/s <===\n")
-        if (epoch + 1) % max(args.save_interval, 1) == 0 or epoch == args.num_epochs - 1:
-            save_bundle(f"{args.output_dir}/model.epoch.{epoch}", model,
-                        metadata={"epoch": epoch, "reverse_labels": args.reverse_labels,
-                                  "las_input": "enc" if args.shared_encoder_model else "feats"})
+        if ((epoch + 1) % max(args.save_interval, 1) == 0 or epoch == args.num_epochs - 1):
+            if r == 0:
+                save_bundle(f"{args.output_dir}/model.epoch.{epoch}", model,
+                            metadata={"epoch": epoch, "reverse_labels": args.reverse_labels,
+                                      "las_input": ("enc" if args.shared_encoder_model
+                                                    else "feats")})
+            barrier()
     log_f.write("Training Finished\n")
 
 

@@ -1,5 +1,4 @@
-"""MBR fine-tuning CLI (port of ``pika_tpu/train/train_mbr.py``,
-``--dp_mode sync`` on one card):
+"""MBR fine-tuning CLI (port of ``pika_tpu/train/train_mbr.py``):
 
     python -m pika_tpu_torch.train.train_mbr DATA_LST LOG OUTPUT_DIR \\
         --init_model BUNDLE --beam_size 4 --sm_scale 1.2 --rnnt_scale 0.02 ... \\
@@ -19,10 +18,15 @@ and "RNNT Loss" lines read every 8 steps; ``model.tmp`` every
 ``--tmp_save_batches`` steps and ``model.epoch.N`` bundles.  The log lines
 are the JAX CLI's.
 
+Distribution is the training CLI's (``train_transducer.py``): ranks from
+``common.launch``, each decoding and stepping on its own rows of the global
+batch; ``--dp_mode sync`` sums the gradients over the ranks and takes the
+BatchNorm moments over all of them, the BMUF modes run rounds of
+``--sync_period`` local MBR steps and a block update with the BatchNorm
+statistics averaged.  Rank 0 writes the bundles.
+
 Flags the JAX CLI parses and ignores (``--compute_dtype``, ``--remat``,
-``--pruned_loss_range``, ...) are ignored here too.  ``--dp_mode``
-bmuf/blockadam/bmufadam and more than one process or card raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+``--pruned_loss_range``, ...) are ignored here too.
 """
 
 from __future__ import annotations
@@ -32,17 +36,27 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from pika_tpu_torch.data.loader import prefetch_iter
 from pika_tpu_torch.decode.beam import BeamConfig
-from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.parallel import (
+    SumGradients,
+    barrier,
+    global_batch_norm,
+    rank,
+    world_size,
+)
 from pika_tpu_torch.train import common
 from pika_tpu_torch.train.bundle import load_bundle, save_bundle
 from pika_tpu_torch.train.mbr import make_mbr_step
 from pika_tpu_torch.train.train_transducer import (
     DRAIN_EVERY,
     batch_stream,
-    host_batch,
+    group_rounds,
+    make_bmuf,
+    pad_round,
+    rank_batch,
     to_device,
 )
 from pika_tpu_torch.utils.logger import Logger
@@ -71,15 +85,19 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.init_model:
         raise SystemExit("MBR training requires --init_model (an RNN-T bundle)")
-    common.check_single_card(args)
-    device = resolve_device(args.device)
-    with open(args.log.replace("WORKER-ID", "0"), "w") as log_f:
+    common.launch(args, run)
+
+
+def run(args, device: torch.device) -> None:
+    """One rank of ``main``: its log, then ``train``."""
+    with common.open_log(args) as log_f:
         train(args, device, log_f)
 
 
 def train(args, device: torch.device, log_f) -> None:
-    """The run of ``main`` after parsing, logging to ``log_f``."""
+    """The run of ``main`` on one rank after parsing, logging to ``log_f``."""
     pin = device.type == "cuda"
+    r, w = rank(), world_size()
     if args.loader == "utt":
         if not args.ali_rspec:
             sys.exit("--loader utt requires --ali_rspec (ark:label.txt)")
@@ -88,22 +106,34 @@ def train(args, device: torch.device, log_f) -> None:
         featurizer, _, _ = common.featurizer_from_args(args, device=device)
     model, _ = load_bundle(args.init_model, device)
     optimizer = common.optimizer_from_args(args, model.parameters())
-    loader_cfg = common.loader_cfg_from_args(args)
+    loader_cfg = common.loader_cfg_from_args(args, batch_size=args.batch_size * w)
     beam_cfg = BeamConfig(beam_size=args.beam_size, n_best=args.beam_size,
                           sm_scale=args.sm_scale, max_symbols=args.decode_max_symbols,
                           prune_dups=False, mm_dtype="auto")
+    bmuf = None
+    if args.dp_mode != "sync":
+        bmuf = make_bmuf(args, model)
+    elif w > 1:
+        optimizer = SumGradients(optimizer)
+        global_batch_norm(model)
     step = make_mbr_step(model, optimizer, featurizer, beam_cfg, rnnt_scale=args.rnnt_scale,
                          sm_scale=args.sm_scale, loss_chunk=args.loss_chunk,
                          loss_backend="plain" if args.loss_backend == "xla" else "auto")
-    log_f.write(f"MBR fine-tuning: devices 1 ({args.dp_mode}), processes 1, "
-                f"beam {args.beam_size}\n")
+    log_f.write(f"MBR fine-tuning: devices {w} ({args.dp_mode}), "
+                f"processes {args.num_processes}, beam {args.beam_size}\n")
     log_f.flush()
 
+    def save(path, metadata=None):
+        if r == 0:
+            save_bundle(path, model, metadata=metadata)
+        barrier()
+
     num_done = 0
+    step_count = 0
     for epoch in range(args.num_epochs):
         log_f.write(f"===> Epoch {epoch} <===\n")
         logger = Logger(log_f, args.log_per_n_frames, ["MBR Loss", "RNNT Loss"])
-        generator = torch.Generator(device).manual_seed(args.seed + epoch)
+        generator = torch.Generator(device).manual_seed(common.seed_for(args, epoch))
         pending = []  # device metrics, read every DRAIN_EVERY steps
         t_epoch = time.perf_counter()
         n_utts = 0
@@ -112,21 +142,41 @@ def train(args, device: torch.device, log_f) -> None:
             if not pending:
                 return
             rows = torch.stack([torch.stack([m["num_labels"].float(), m["mbr_loss"],
-                                             m["rnnt_loss"]]) for m in pending]).cpu().tolist()
-            for n_labels, mbr, rnnt in rows:
+                                             m["rnnt_loss"]]) for m in pending])
+            if w > 1:
+                dist.all_reduce(rows)  # the global batch's sums
+            for n_labels, mbr, rnnt in rows.cpu().tolist():
                 logger.update_and_log(int(n_labels), [mbr, rnnt])
             pending.clear()
 
-        for host in prefetch_iter(batch_stream(args, loader_cfg, epoch),
-                                  transform=lambda b: host_batch(b, pin)):
-            pending.append(step(to_device(host, device), generator))
-            n_utts += loader_cfg.batch_size
-            if len(pending) >= DRAIN_EVERY:
-                drain()
-            num_done += 1
-            if num_done % args.tmp_save_batches == 0:
-                drain()
-                save_bundle(f"{args.output_dir}/model.tmp", model)
+        stream = batch_stream(args, loader_cfg, epoch)
+        if bmuf is None:
+            for host in prefetch_iter(stream, transform=lambda b: rank_batch(b, pin)):
+                pending.append(step(to_device(host, device), generator))
+                n_utts += loader_cfg.batch_size
+                if len(pending) >= DRAIN_EVERY:
+                    drain()
+                num_done += 1
+                if num_done % args.tmp_save_batches == 0:
+                    drain()
+                    save(f"{args.output_dir}/model.tmp")
+        else:
+            for host in prefetch_iter(group_rounds(stream, args.sync_period),
+                                      transform=lambda g: [rank_batch(b, pin)
+                                                           for b in pad_round(g)]):
+                ok, metrics = bmuf.round(
+                    optimizer, lambda h: step(to_device(h, device), generator), host, step_count)
+                step_count += args.sync_period
+                n_utts += loader_cfg.batch_size * args.sync_period
+                num_done += args.sync_period
+                if not ok:
+                    log_f.write("NaN detected in BMUF sync — stopping\n")
+                    sys.exit(1)
+                logger.update_and_log(int(metrics["num_labels"].sum()),
+                                      [float(metrics["mbr_loss"].sum()),
+                                       float(metrics["rnnt_loss"].sum())])
+                if num_done % args.tmp_save_batches < args.sync_period:
+                    save(f"{args.output_dir}/model.tmp")
         drain()
         logger.summarize_and_log()
         if device.type == "cuda":
@@ -135,8 +185,7 @@ def train(args, device: torch.device, log_f) -> None:
         log_f.write(f"===> Epoch {epoch} wall {dt:.1f}s, {n_utts} utts, "
                     f"{n_utts / max(dt, 1e-9):.1f} utt/s <===\n")
         if (epoch + 1) % max(args.save_interval, 1) == 0 or epoch == args.num_epochs - 1:
-            save_bundle(f"{args.output_dir}/model.epoch.{epoch}", model,
-                        metadata={"epoch": epoch})
+            save(f"{args.output_dir}/model.epoch.{epoch}", metadata={"epoch": epoch})
     log_f.write("Training Finished\n")
 
 

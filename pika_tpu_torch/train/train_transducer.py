@@ -1,29 +1,42 @@
-"""RNN-T training CLI (port of ``pika_tpu/train/train_transducer.py``,
-``--dp_mode sync`` on one card):
+"""RNN-T training CLI (port of ``pika_tpu/train/train_transducer.py``):
 
     python -m pika_tpu_torch.train.train_transducer DATA_LST LOG OUTPUT_DIR \\
         --encoder_type transformer --decoder_type rnn --rnn_size 1024 ... \\
-        --dp_mode sync [--device cpu]
+        --dp_mode bmuf --sync_period 5 --block_momentum 0.9 [--device cpu]
 
 It takes the JAX CLI's command lines (``egs/train_transducer.sh``) and runs
-on the card unless ``--device`` names another.  Per epoch: batches from the
-otf loader (``data/loader.py``) or, with ``--loader utt``, from precomputed
-features (``data/feats_loader.py``), stacked and pinned on a prefetch thread
-and copied to the card ``non_blocking`` on the main thread (all CUDA work
-stays there); one train step each (``train/step.py``) with the epoch's
-``torch.Generator`` (seeded ``--seed + epoch``); the losses stay on the
-device and are read every 8 steps with the NaN check.  After each saving
-epoch, a full-state checkpoint (``ckpt/<epoch>/``, ``train/checkpoint.py``)
-and a model bundle (``model.epoch.N``, ``train/bundle.py``, which the
-decode CLI reads); ``--resume`` continues from the newest checkpoint.  The
-log lines are the JAX CLI's.
+on the card unless ``--device`` names another.  ``--num_devices N`` ranks
+(one per card; gloo workers with ``--device cpu``) and the multi-host flags
+are launched by ``common.launch``; every rank reads the same global batch
+stream (``--batch_size`` rows per rank) and takes its own rows.  Per epoch:
+batches from the otf loader (``data/loader.py``) or, with ``--loader utt``,
+from precomputed features (``data/feats_loader.py``), cut to the rank's
+rows and pinned on a prefetch thread and copied to the card
+``non_blocking`` on the main thread (all CUDA work stays there); then
+
+* ``--dp_mode sync``: one train step each (``train/step.py``); with more
+  than one rank the gradients are summed over the ranks before the clip and
+  the encoder's BatchNorm takes global moments (``parallel/dp.py``);
+* ``bmuf``, ``blockadam``, ``bmufadam``: rounds of ``--sync_period``
+  batches (padded to the round's widest, as the JAX CLI stacks them), local
+  steps from a fresh optimizer at the global step, then the block update
+  (``parallel/bmuf.py``), the BatchNorm statistics averaged over the ranks;
+  a non-finite delta stops the run with exit 1.
+
+Every draw comes from the epoch's ``torch.Generator`` (seeded ``--seed +
+epoch`` in a world of one).  The losses stay on the device and are read
+every 8 steps (sync) or every round, summed or averaged over the ranks.
+After each saving epoch rank 0 writes a full-state checkpoint
+(``ckpt/<epoch>/``, ``train/checkpoint.py``; BMUF's block state and step
+count included) and a model bundle (``model.epoch.N``, ``train/bundle.py``,
+which the decode CLI reads) while the other ranks wait; ``--resume``
+continues from the newest checkpoint.  The log lines are the JAX CLI's;
+``WORKER-ID`` in LOG becomes the rank.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item: ``--dp_mode`` bmuf/blockadam/bmufadam, more than one process or card
-(item 7), ``--pruned_loss_range > 0`` (item 8), ``--encoder_type rnn``,
-``--decoder_type transformer`` and ``--brnn``, which only the rnn encoder
-reads (item 9).
-``--steps_per_dispatch`` is accepted and has no effect.
+item: ``--pruned_loss_range > 0`` (item 8) and ``--decoder_type
+transformer`` (item 9).  ``--steps_per_dispatch`` is accepted and has no
+effect.
 """
 
 from __future__ import annotations
@@ -38,10 +51,22 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pika_tpu_torch.data.loader import dataloader, prefetch_iter
-from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
+from pika_tpu_torch.parallel import (
+    BMUF,
+    BMUFConfig,
+    SumGradients,
+    all_sum,
+    barrier,
+    global_batch_norm,
+    local_rows,
+    rank,
+    replicate,
+    world_size,
+)
 from pika_tpu_torch.train import common
 from pika_tpu_torch.train.bundle import load_bundle, save_bundle
 from pika_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -77,15 +102,10 @@ def check_ported(args) -> None:
     item, instead of being ignored.  With ``--init_model`` the bundle's
     configuration replaces the model flags (as in the JAX CLI), and loading
     it raises on the unported model types."""
-    common.check_single_card(args)
     fresh = not args.init_model
     unported = [
         (args.pruned_loss_range > 0,
          "--pruned_loss_range > 0 (the pruned loss): ROADMAP Queue 1 item 8"),
-        (fresh and args.brnn,
-         "--brnn (the bidirectional encoder LSTM, which only the rnn encoder has): ROADMAP "
-         "Queue 1 item 9"),
-        (fresh and args.encoder_type == "rnn", "--encoder_type rnn: ROADMAP Queue 1 item 9"),
         (fresh and args.decoder_type == "transformer",
          "--decoder_type transformer (the transformer prediction net): ROADMAP Queue 1 item 9"),
     ]
@@ -102,7 +122,8 @@ def make_model(args, input_dim: int, device: torch.device):
         return model, model.config
     cfg = TransducerConfig(
         input_dim=input_dim, vocab_size=args.output_dim, hid_dim=args.rnn_size,
-        encoder_type="tdnn_transformer", decoder_type="rnn", enc_layers=args.enc_layers,
+        encoder_type="tdnn_transformer" if args.encoder_type == "transformer" else "rnn",
+        decoder_type="rnn", enc_layers=args.enc_layers,
         dec_layers=args.dec_layers, embd_dim=args.embd_dim, dropout=args.dropout,
         brnn=args.brnn, tdnn_nhid=args.tdnn_nhid, tdnn_layers=args.tdnn_layers,
         tdnn_transformer_dropout=args.tdnn_transformer_dropout, remat=args.remat,
@@ -146,7 +167,7 @@ def batch_stream(args, loader_cfg, epoch: int, noise=None, rir=None, required=Tr
         yield from feats_batch_stream(args, loader_cfg.batch_size, epoch,
                                       shuffle=loader_cfg.augment, required=required)
         return
-    lists = common.expand_worker_lists(args.data_lst, args.num_devices or 1)
+    lists = common.expand_worker_lists(args.data_lst, world_size())
     streams = [dataloader(lst, dataclasses.replace(loader_cfg,
                                                    seed=loader_cfg.seed + 1000 * epoch + i),
                           noise=noise, rir=rir)
@@ -192,6 +213,49 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def rank_batch(batch, pin: bool) -> dict:
+    """This rank's rows of a global loader batch, as ``host_batch``."""
+    return host_batch(local_rows(batch, rank(), world_size()), pin)
+
+
+def group_rounds(stream, sync_period: int):
+    """Lists of ``sync_period`` batches; a shorter tail is dropped."""
+    pending = []
+    for batch in stream:
+        pending.append(batch)
+        if len(pending) == sync_period:
+            yield pending
+            pending = []
+
+
+def pad_round(batches: list, pad_values: dict = None) -> list:
+    """A round's host batches with every array of two or more axes padded
+    on axis 1 to the round's widest (``pad_values[key]``, default 0): the
+    JAX CLI stacks a round into one array (``_stack_batches``), so its
+    steps see these widths."""
+    out = [dict(b) for b in batches]
+    for k, v in batches[0].items():
+        if k == "uttids" or np.ndim(v) < 2:
+            continue
+        width = max(np.shape(b[k])[1] for b in batches)
+        fill = (pad_values or {}).get(k, 0)
+        for b in out:
+            a = np.asarray(b[k])
+            b[k] = np.pad(a, [(0, 0), (0, width - a.shape[1])] + [(0, 0)] * (a.ndim - 2),
+                          constant_values=fill)
+    return out
+
+
+def make_bmuf(args, model: torch.nn.Module, buffers=True) -> BMUF:
+    """BMUF over ``model``'s parameters (and, with ``buffers``, its float
+    buffers: the BatchNorm running statistics, averaged at each sync) from
+    the block flags."""
+    cfg = BMUFConfig(variant=args.dp_mode, block_momentum=args.block_momentum,
+                     block_lr=args.block_lr, sync_period=args.sync_period)
+    extra = [b for b in model.buffers() if b.is_floating_point()] if buffers else []
+    return BMUF(model.parameters(), cfg, buffers=extra)
+
+
 def _host_copy(state):
     """A CPU copy of a (nested) state dict, safe to write from a thread
     while training goes on."""
@@ -207,15 +271,20 @@ def _host_copy(state):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
-    device = resolve_device(args.device)
+    common.launch(args, run)
+
+
+def run(args, device: torch.device) -> None:
+    """One rank of ``main``: its log, then ``train``."""
     common.resolve_rng_impl(args, device)
-    with open(args.log.replace("WORKER-ID", "0"), "w") as log_f:
+    with common.open_log(args) as log_f:
         train(args, device, log_f)
 
 
 def train(args, device: torch.device, log_f) -> None:
-    """The run of ``main`` after parsing, logging to ``log_f``."""
+    """The run of ``main`` on one rank after parsing, logging to ``log_f``."""
     pin = device.type == "cuda"
+    r, w = rank(), world_size()
 
     if args.loader == "utt":
         if not args.ali_rspec:
@@ -224,8 +293,9 @@ def train(args, device: torch.device, log_f) -> None:
     else:
         featurizer, input_dim, _ = common.featurizer_from_args(args, device=device)
     model, cfg = make_model(args, input_dim, device)
+    replicate(model.state_dict().values())
     optimizer = common.optimizer_from_args(args, model.parameters())
-    loader_cfg = common.loader_cfg_from_args(args)
+    loader_cfg = common.loader_cfg_from_args(args, batch_size=args.batch_size * w)
     noise = common.load_noise_segments(args.noise_lst)
     rir = common.load_noise_segments(args.rir_lst)
 
@@ -234,12 +304,20 @@ def train(args, device: torch.device, log_f) -> None:
     log_f.write(
         f"model: transducer  input dim: {input_dim}\toutput dim: {args.output_dim}\n"
         f"hidden dim: {args.rnn_size}\tenc_layers: {args.enc_layers}\n"
-        f"dec_layers: {args.dec_layers}\tdevices: 1 ({args.dp_mode})\n"
+        f"dec_layers: {args.dec_layers}\tdevices: {w} ({args.dp_mode})\n"
         f"model size: {num_param / 1e6:.2f} M\n")
     log_f.write("*" * 60 + "\n")
     log_f.flush()
 
+    bmuf = None
+    if args.dp_mode != "sync":
+        bmuf = make_bmuf(args, model)
+    elif w > 1:
+        optimizer = SumGradients(optimizer)
+        global_batch_norm(model)
+
     start_epoch = 0
+    resumed_steps = None
     ckpt_dir = f"{args.output_dir}/ckpt"
     if args.resume:
         try:
@@ -247,27 +325,44 @@ def train(args, device: torch.device, log_f) -> None:
             model.load_state_dict(state["model"])
             optimizer.load_state_dict(state["optimizer"])
             start_epoch = int(state["metadata"].get("epoch", -1)) + 1
-            log_f.write(f"resumed from epoch {start_epoch - 1} (optimizer state included)\n")
+            if bmuf is None:
+                log_f.write(f"resumed from epoch {start_epoch - 1} "
+                            f"(optimizer state included)\n")
+            else:
+                bmuf.load_state_dict(state["bmuf"])
+                resumed_steps = int(state["bmuf"]["steps"])
+                log_f.write(f"resumed BMUF state from epoch {start_epoch - 1} "
+                            f"(step {resumed_steps})\n")
         except FileNotFoundError:
             log_f.write("no checkpoint found; starting fresh\n")
+    # the BMUF schedule's global step: the checkpoint's when one was restored
+    step_count = [resumed_steps if resumed_steps is not None
+                  else start_epoch * args.num_batches_per_epoch]
 
     backend = "plain" if args.loss_backend == "xla" else "auto"
     cdt = torch.bfloat16 if args.compute_dtype == "bfloat16" else None
     step = make_train_step(model, optimizer, featurizer, loss_chunk=args.loss_chunk,
                            loss_backend=backend, compute_dtype=cdt)
-    utt_box = [0]  # utterances consumed this epoch, for the epoch summary
+    utt_box = [0]  # utterances consumed this epoch (all ranks), for the epoch summary
+
+    def save_tmp():
+        if r == 0:
+            save_bundle(f"{args.output_dir}/model.tmp", model)
+        barrier()
 
     def run_epoch(epoch):
         logger = Logger(log_f, args.log_per_n_frames, ["Loss"])
-        generator = torch.Generator(device).manual_seed(args.seed + epoch)
+        generator = torch.Generator(device).manual_seed(common.seed_for(args, epoch))
         pending = []  # device metrics, read every DRAIN_EVERY steps (no per-step sync)
 
         def drain():
             if not pending:
                 return
-            losses = torch.stack([m["loss"] for m in pending]).cpu().numpy()
-            labels = torch.stack([m["num_labels"] for m in pending]).cpu().numpy()
-            for loss_val, n_labels in zip(losses, labels):
+            rows = torch.stack([torch.stack([m["loss"], m["num_labels"].float()])
+                                for m in pending])
+            if w > 1:
+                dist.all_reduce(rows)  # the global batch's loss and labels
+            for loss_val, n_labels in rows.cpu().numpy():
                 loss_val = float(loss_val)
                 if loss_val != loss_val:
                     log_f.write("NaN loss detected — stopping\n")
@@ -276,12 +371,16 @@ def train(args, device: torch.device, log_f) -> None:
             pending.clear()
 
         def pack(b):
-            return host_batch(b, pin), time.perf_counter()
+            return rank_batch(b, pin), time.perf_counter()
+
+        def pack_round(batches):
+            return [rank_batch(b, pin) for b in pad_round(batches)], time.perf_counter()
 
         waits, leads = [], []  # consumer blocking; how long a ready batch sat
         n_batches = 0
-        it = iter(prefetch_iter(batch_stream(args, loader_cfg, epoch, noise, rir),
-                                transform=pack))
+        stream = batch_stream(args, loader_cfg, epoch, noise, rir)
+        it = iter(prefetch_iter(stream, transform=pack) if bmuf is None else
+                  prefetch_iter(group_rounds(stream, args.sync_period), transform=pack_round))
         while True:
             t0 = time.perf_counter()
             try:
@@ -291,17 +390,29 @@ def train(args, device: torch.device, log_f) -> None:
             t1 = time.perf_counter()
             waits.append(t1 - t0)
             leads.append(t1 - t_ready)
-            pending.append(step(to_device(host, device), generator))
-            utt_box[0] += loader_cfg.batch_size
-            n_batches += 1
-            if len(pending) >= DRAIN_EVERY:
-                drain()
-            if args.save_every_n_batches and n_batches % args.save_every_n_batches == 0:
-                drain()
-                save_bundle(f"{args.output_dir}/model.tmp", model)
+            if bmuf is None:
+                pending.append(step(to_device(host, device), generator))
+                utt_box[0] += loader_cfg.batch_size
+                n_batches += 1
+                if len(pending) >= DRAIN_EVERY:
+                    drain()
+                if args.save_every_n_batches and n_batches % args.save_every_n_batches == 0:
+                    drain()
+                    save_tmp()
+                continue
+            ok, metrics = bmuf.round(optimizer, lambda h: step(to_device(h, device), generator),
+                                     host, step_count[0])
+            step_count[0] += args.sync_period
+            utt_box[0] += loader_cfg.batch_size * args.sync_period
+            if not ok:
+                log_f.write("NaN detected in BMUF sync — stopping\n")
+                sys.exit(1)
+            logger.update_and_log(int(metrics["num_labels"].sum()),
+                                  [float(metrics["loss"].sum())])
         if leads:
             ahead = sum(1 for x in leads if x > 5e-3)
-            log_f.write(f"prefetch overlap: {ahead}/{len(leads)} batches pinned before "
+            unit = "batches" if bmuf is None else "rounds"
+            log_f.write(f"prefetch overlap: {ahead}/{len(leads)} {unit} pinned before "
                         f"request; consumer wait total {sum(waits):.2f}s "
                         f"(max {max(waits):.2f}s)\n")
         drain()
@@ -313,12 +424,12 @@ def train(args, device: torch.device, log_f) -> None:
         vcfg = dataclasses.replace(loader_cfg, augment=False)
         vargs = copy.copy(args)
         vargs.data_lst = args.valid_data_lst
-        tot_loss = tot_labels = 0.0
+        tot = np.zeros(2)
         # a valid set smaller than the batch logs and skips
         for batch in batch_stream(vargs, vcfg, 0, required=False):
-            m = eval_step(to_device(host_batch(batch, False), device))
-            tot_loss += float(m["loss"])
-            tot_labels += float(m["num_labels"])
+            m = eval_step(to_device(rank_batch(batch, False), device))
+            tot += [float(m["loss"]), float(m["num_labels"])]
+        tot_loss, tot_labels = all_sum(tot, device)
         log_f.write(f"===> Epoch {epoch} valid loss/label: "
                     f"{tot_loss / max(tot_labels, 1.0):.4f} <===\n")
         log_f.flush()
@@ -334,15 +445,22 @@ def train(args, device: torch.device, log_f) -> None:
             raise RuntimeError("saving a checkpoint failed") from saver["error"]
 
     def save(epoch):
-        """The epoch's checkpoint and bundle; with --async_save written on a
-        thread from a host copy taken here."""
+        """The epoch's checkpoint and bundle, written by rank 0 while the
+        other ranks wait; with --async_save written on a thread from a host
+        copy taken here."""
+        if r != 0:
+            barrier()
+            return
         join_saver()
         snap = _host_copy if args.async_save else (lambda x: x)
         model_state = snap(model.state_dict())
         opt_state = snap(optimizer.state_dict())
+        bmuf_state = None if bmuf is None else snap({**bmuf.state_dict(),
+                                                     "steps": step_count[0]})
 
         def write():
-            save_checkpoint(ckpt_dir, epoch, model_state, opt_state, metadata={"epoch": epoch})
+            save_checkpoint(ckpt_dir, epoch, model_state, opt_state, metadata={"epoch": epoch},
+                            bmuf_state=bmuf_state)
             save_bundle(f"{args.output_dir}/model.epoch.{epoch}", model,
                         metadata={"epoch": epoch}, state_dict=model_state)
 
@@ -357,6 +475,7 @@ def train(args, device: torch.device, log_f) -> None:
             saver["thread"].start()
         else:
             write()
+        barrier()
 
     for epoch in range(start_epoch, args.num_epochs):
         log_f.write(f"===> Epoch {epoch} <===\n")

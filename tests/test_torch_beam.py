@@ -47,7 +47,10 @@ BF16_SCORE_RTOL = 2e-2
 
 @functools.lru_cache(maxsize=1)
 def _init_jax():
-    return init_jax(jax.random.PRNGKey(4), ConfigJax(**MODEL), max_t=64)
+    """``init_transducer`` under jit (eager init takes seconds here)."""
+    cfg = ConfigJax(**MODEL)
+    variables = jax.jit(lambda key: init_jax(key, cfg, max_t=64)[1])(jax.random.PRNGKey(4))
+    return TransducerJax(cfg), variables
 
 
 def _models(blank_bias=0.0, blank=0):
@@ -119,16 +122,17 @@ def test_model_methods_match_jax(models, f32_attention):
         ("joint_step", (enc, dec[:, :1].repeat(5, 1)), TransducerJax.joint_step, pt.joint_step),
         ("joint_logits", (enc, dec), TransducerJax.joint_logits, pt.joint_logits),
     ]
+    apply = jax.jit(model.apply, static_argnames=("method", "softmax"))
     with torch.no_grad():
         for name, args, ref_fn, fn in cases:
-            ref = model.apply(v, *map(jnp.asarray, args), method=ref_fn)
+            ref = apply(v, *map(jnp.asarray, args), method=ref_fn)
             got = fn(*map(torch.from_numpy, args))
             assert got.shape == ref.shape, name
             np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5,
                                        err_msg=name)
         for softmax in (True, False):
-            ref = model.apply(v, jnp.asarray(x), jnp.asarray(tokens[:2, :4]), jnp.asarray(x_len),
-                              jnp.asarray(y_len), softmax=softmax)
+            ref = apply(v, jnp.asarray(x), jnp.asarray(tokens[:2, :4]), jnp.asarray(x_len),
+                        jnp.asarray(y_len), softmax=softmax)
             got = pt(torch.from_numpy(x), torch.from_numpy(tokens[:2, :4]),
                      torch.from_numpy(x_len), torch.from_numpy(y_len), softmax=softmax)
             assert got.shape == ref.shape == (2, pt.encoder_out_len(40), 5, VOCAB)

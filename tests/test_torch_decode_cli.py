@@ -22,7 +22,11 @@ from pika_tpu.data.kaldi_ark import write_matrix_ark
 from pika_tpu.decode.rescore import rerank_nbest as rerank_jax
 from pika_tpu.decode.wer import edit_distance as edit_distance_jax, score_wer as score_wer_jax
 from pika_tpu.models.las import LASConfig as LASConfigJax, init_las as init_las_jax
-from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
+from pika_tpu.models.transducer import (
+    Transducer as TransducerJax,
+    TransducerConfig as ConfigJax,
+    init_transducer as init_jax,
+)
 from pika_tpu.train.bundle import load_bundle as load_bundle_jax, save_bundle as save_bundle_jax
 from pika_tpu.train.eval_transducer import (
     main as eval_main_jax,
@@ -51,6 +55,11 @@ N_UTTS = 5  # two batches of 4: the second is filled with rows of silence
 LAS_CFG = dict(output_dim=VOCAB + 1, pad_idx=VOCAB + 1, rnn_size=16, enc_layers=2, dec_layers=2,
            embd_dim=6)
 LAS_BUNDLES = {"fw": (16, "enc", False), "bw": (16, "enc", True), "feats": (3 * MEL, "feats", False)}
+
+
+def _init_jax_jit(key, cfg):
+    """``init_transducer`` under jit (eager init takes seconds here)."""
+    return TransducerJax(cfg), jax.jit(lambda k: init_jax(k, cfg, max_t=64)[1])(key)
 
 
 def _write_pcm24(path, samples):
@@ -83,7 +92,7 @@ def corpus(tmp_path_factory):
     stats.accumulate(rng.standard_normal((500, MEL)) * 2 + 10)
     stats.write(str(d / "cmvn.stats"))
 
-    model, variables = init_jax(jax.random.PRNGKey(3), ConfigJax(**MODEL), max_t=64)
+    model, variables = _init_jax_jit(jax.random.PRNGKey(3), ConfigJax(**MODEL))
     v = jax.tree.map(np.array, variables)
     v["params"]["fc2"]["bias"][0] += 2.0  # a model that also stops by the search's stop rule
     save_bundle_jax(str(d / "jax_bundle"), "transducer", ConfigJax(**MODEL), v)

@@ -33,7 +33,11 @@ import pika_tpu.models.transformer as transformer_jax
 import pika_tpu_torch.models.transformer as transformer_pt
 from pika_tpu.features.fbank import FbankConfig as FbankJax
 from pika_tpu.models.tdnn_transformer import TDNNTransformerEncoder as TDNNJax
-from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
+from pika_tpu.models.transducer import (
+    Transducer as TransducerJax,
+    TransducerConfig as ConfigJax,
+    init_transducer as init_jax,
+)
 from pika_tpu.train import lr as lr_jax
 from pika_tpu.train.step import (
     FeaturizerConfig as FeatJax,
@@ -73,6 +77,11 @@ class _Proxy:
 
     def __getattr__(self, name):
         return getattr(self._module, name)
+
+
+def _init_jax_jit(key, cfg):
+    """``init_transducer`` under jit (eager init takes seconds here)."""
+    return TransducerJax(cfg), jax.jit(lambda k: init_jax(k, cfg, max_t=64)[1])(key)
 
 
 @pytest.fixture
@@ -298,7 +307,7 @@ def test_flash_train_step_matches_jax(jax_flash, port_flash):
     valid = torch.cat([f[:n] for f, n in zip(feats, lens.tolist())]).numpy()
     offset, scale = -valid.mean(0), 1.0 / valid.std(0)
 
-    model_jax, variables = init_jax(jax.random.PRNGKey(4), ConfigJax(**MODEL), max_t=64)
+    model_jax, variables = _init_jax_jit(jax.random.PRNGKey(4), ConfigJax(**MODEL))
     variables = jax.tree.map(np.asarray, variables)
     jax_flash["flash"] = 0  # count the step only
     tx = lr_jax.make_optimizer("sgd", **OPTIM)

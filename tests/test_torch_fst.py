@@ -8,6 +8,7 @@ cycles), with and without the advance cache."""
 import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,6 +222,11 @@ def test_device_queries_match_jax(negative, disambig, cached):
     one label and of every label, all bit for bit; state sets of capacity
     4 and 1."""
     rng = np.random.default_rng(6)
+    # the JAX queries under jit (eagerly, each vmap traces again every call)
+    advance = jax.jit(fst_jax.fst_advance_sets, static_argnums=(4,))
+    final = jax.jit(fst_jax.fst_final_scores)
+    min_costs = jax.jit(fst_jax.fst_advance_min_costs)
+    min_costs_all = jax.jit(fst_jax.fst_advance_min_costs_all)
     tj, tp = _both(7, negative, disambig)
     kw = dict(n_ilabels=16, cache_max_bytes=1 << 20) if cached else {}
     dj, dp = tj.device_arrays(**kw), tp.device_arrays("cpu", **kw)
@@ -234,23 +240,23 @@ def test_device_queries_match_jax(negative, disambig, cached):
         for step in range(6):
             labels = rng.integers(1, 10, (2, 3)).astype(np.int32)
             reward = 0.3 if step % 2 else 0.0
-            sj, cj, lj = fst_jax.fst_advance_sets(dj, sj, cj, jnp.asarray(labels), 6, reward)
+            sj, cj, lj = advance(dj, sj, cj, jnp.asarray(labels), 6, reward)
             sp, cp, lp = fst_pt.fst_advance_sets(dp, sp, cp, torch.from_numpy(labels).long(), 6,
                                                  reward)
             np.testing.assert_array_equal(sp.numpy(), np.asarray(sj))
             live += int((sp >= 0).any(-1).sum())
             for got, ref in ((cp, cj), (lp, lj),
                              (fst_pt.fst_final_scores(dp, sp, cp),
-                              fst_jax.fst_final_scores(dj, sj, cj))):
+                              final(dj, sj, cj))):
                 np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
             if cached:
                 lab = rng.integers(0, 20, (2, 3)).astype(np.int32)
                 for got, ref in (
                         (fst_pt.fst_advance_min_costs(dp, sp, cp, torch.from_numpy(lab).long(),
                                                       0.2),
-                         fst_jax.fst_advance_min_costs(dj, sj, cj, jnp.asarray(lab), 0.2)),
+                         min_costs(dj, sj, cj, jnp.asarray(lab), 0.2)),
                         (fst_pt.fst_advance_min_costs_all(dp, sp, cp, 0.2),
-                         fst_jax.fst_advance_min_costs_all(dj, sj, cj, 0.2))):
+                         min_costs_all(dj, sj, cj, 0.2))):
                     np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
         assert live >= 6  # the comparison saw live sets
 

@@ -923,3 +923,62 @@ def test_las_score_hyps_on_card_equals_cpu(cuda_device):
                              0, 49, reverse)
         for r, x in zip(ref, got):
             torch.testing.assert_close(x.cpu(), r, rtol=1e-4, atol=1e-4)
+
+
+def _bmuf_rounds(device, variant: str) -> dict:
+    """Two BMUF rounds at world size 1 on ``device``: a 4-d quadratic per
+    row (the JAX package's BMUF test step), Adam as the local optimizer, a
+    statistic averaged at the sync, inside the process group of
+    ``device``'s backend (NCCL on the card, gloo on the CPU)."""
+    from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
+    from pika_tpu_torch.train.lr import make_optimizer
+
+    rng = np.random.default_rng(3)
+    w0 = rng.standard_normal(4).astype(np.float32)
+    rounds = rng.standard_normal((2, 3, 5, 4)).astype(np.float32)
+    with process_group(device):
+        w = torch.nn.Parameter(torch.from_numpy(w0).to(device))
+        stat = torch.zeros(4, device=device)
+        opt = make_optimizer([w], "adam", 0.05, 0.01, 20)
+        bmuf = BMUF([w], BMUFConfig(variant, block_momentum=0.5, sync_period=3), buffers=[stat])
+
+        def local_step(rows):
+            rows = torch.from_numpy(rows).to(device)
+            loss = 0.5 * ((w[None] - rows) ** 2).sum()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                stat.mul_(0.9).add_(0.1 * rows.mean(0))
+            return {"loss": loss.detach()}
+
+        out = []
+        for i, rnd in enumerate(rounds):
+            ok, metrics = bmuf.round(opt, local_step, list(rnd), 3 * i)
+            out.append({"ok": ok, "w": w.detach().cpu().clone(), "stat": stat.cpu().clone(),
+                        "loss": metrics["loss"].cpu().clone(),
+                        **{k: [x.cpu().clone() for x in v]  # copies: the state moves on
+                           for k, v in bmuf.state_dict().items() if isinstance(v, list)}})
+    return out
+
+
+@pytest.mark.parametrize("variant", ["bmuf", "blockadam", "bmufadam"])
+def test_bmuf_round_over_nccl_equals_gloo_on_cpu(cuda_device, variant):
+    """One BMUF round (two, so the block state carries over) at world size
+    1 over NCCL on the card equals the same rounds over gloo on the CPU, to
+    rtol 1e-5 and 4 float32 ulps of the largest parameter: the card's Adam
+    (its foreach form) and the CPU's round differently, and the delta is a
+    difference of two parameters, which is its rounding floor (as in
+    ``tests/test_torch_bmuf.py``)."""
+    card = _bmuf_rounds(torch.device("cuda", torch.cuda.current_device()), variant)
+    cpu = _bmuf_rounds(torch.device("cpu"), variant)
+    atol = 4 * torch.finfo(torch.float32).eps * max(cpu[0]["w"].abs().max().item(), 1.0)
+    for a, b in zip(card, cpu):
+        assert a["ok"] and b["ok"]
+        for k in a:
+            if k == "ok":
+                continue
+            for x, y in zip(a[k] if isinstance(a[k], list) else [a[k]],
+                            b[k] if isinstance(b[k], list) else [b[k]]):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=atol,
+                                           msg=lambda m, k=k: f"{variant} {k}: {m}")

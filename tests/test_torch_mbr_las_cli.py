@@ -13,7 +13,7 @@ float32 attention on both sides:
   encoder, forward and with ``--reverse_labels``: each epoch's summed loss
   to 1e-4 relative, the final weights to 1e-3 relative L2 (zero-initialised
   biases to 1e-2), the bundles' metadata;
-* the multi-card modes raising with their ROADMAP item, and the entry
+* a multi-card launch that cannot be laid out raising, and the entry
   points raising without a device named on a machine without a card."""
 
 import inspect
@@ -230,10 +230,16 @@ def test_mbr_cli_requires_init_model(tmp_path):
 
 
 @pytest.mark.parametrize("main", [mbr_main, las_main], ids=["mbr", "las"])
-@pytest.mark.parametrize("flags", [["--dp_mode", "bmuf"], ["--dp_mode", "bmufadam"],
-                                   ["--num_devices", "2"], ["--num_processes", "2"]])
-def test_multi_card_modes_raise(main, flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
+@pytest.mark.parametrize("flags,what", [
+    (["--num_processes", "2"], "needs --coordinator_address"),
+    (["--num_devices", "3", "--num_processes", "2", "--coordinator_address", "127.0.0.1:1"],
+     "does not split"),
+    (["--num_processes", "2", "--process_id", "2", "--coordinator_address", "127.0.0.1:1"],
+     "outside")])
+def test_multi_card_modes_raise(main, flags, what, tmp_path):
+    """The multi-card modes run (``tests/test_torch_dist_mbr_las.py``); a
+    launch that cannot be laid out raises before any work."""
+    with pytest.raises(ValueError, match=what):
         main(["data.lst", str(tmp_path / "log"), str(tmp_path / "out"), "--device", "cpu",
               "--init_model", "bundle", *flags])
 

@@ -51,7 +51,9 @@ def _stats(tree, rng):
 def tiny(rng):
     """(flax model, numpy variables with random BN stats, torch model)."""
     cfg = transducer_jax.TransducerConfig(**TINY)
-    model, variables = transducer_jax.init_transducer(jax.random.PRNGKey(0), cfg, max_t=64)
+    model = transducer_jax.Transducer(cfg)
+    variables = jax.jit(lambda k: transducer_jax.init_transducer(k, cfg, max_t=64)[1])(
+        jax.random.PRNGKey(0))  # under jit: eager init takes seconds here
     v = _np(variables)
     v["batch_stats"] = _stats(v["batch_stats"], rng)
     pt = transducer_pt.init_transducer(transducer_pt.TransducerConfig(**TINY),
@@ -175,14 +177,16 @@ def test_joint(tiny, rng):
 
 def test_unported_options_raise():
     """The model types and heads not ported raise, naming their ROADMAP
-    item; the chunked attention is ported and builds."""
-    for kw, item in ((dict(encoder_type="rnn"), "item 9"), (dict(decoder_type="transformer"),
-                                                           "item 9"),
+    item; the chunked attention and the rnn encoder are ported and build."""
+    for kw, item in ((dict(decoder_type="transformer"), "item 9"),
                      (dict(simple_joint=True), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, **kw)))
     model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, attn_chunk=64)))
     assert model.encoder.transformer_0.self_attn.q_chunk == 64
+    model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, encoder_type="rnn",
+                                                                           brnn=True)))
+    assert model.encoder.dirs == 2
 
 
 def test_init_is_seeded():

@@ -22,7 +22,11 @@ import torch
 import pika_tpu_torch
 from pika_tpu.decode.greedy import greedy_decode_waveforms as greedy_jax
 from pika_tpu.features.fbank import FbankConfig as FbankJax
-from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
+from pika_tpu.models.transducer import (
+    Transducer as TransducerJax,
+    TransducerConfig as ConfigJax,
+    init_transducer as init_jax,
+)
 from pika_tpu.train.step import (
     FeaturizerConfig as FeatJax,
     TrainState,
@@ -45,6 +49,11 @@ FBANK = dict(sample_frequency=16000, window_type="hamming", dither=0.0, num_mel_
 MAX_SAMPLES = 16000
 
 
+def _init_jax_jit(key, cfg):
+    """``init_transducer`` under jit (eager init takes seconds here)."""
+    return TransducerJax(cfg), jax.jit(lambda k: init_jax(k, cfg, max_t=64)[1])(key)
+
+
 @pytest.fixture(scope="module")
 def slice_inputs():
     rng = np.random.default_rng(5)
@@ -57,7 +66,7 @@ def slice_inputs():
     cmvn_offset = (rng.standard_normal(3 * MEL) * 0.1 - 10.0).astype(np.float32)
     cmvn_scale = rng.uniform(0.2, 0.4, 3 * MEL).astype(np.float32)
 
-    model, variables = init_jax(jax.random.PRNGKey(4), ConfigJax(**MODEL), max_t=64)
+    model, variables = _init_jax_jit(jax.random.PRNGKey(4), ConfigJax(**MODEL))
     v = jax.tree.map(np.asarray, variables)
     v["batch_stats"] = jax.tree.map(
         lambda x: x + rng.uniform(0.0, 0.2, x.shape).astype(np.float32), v["batch_stats"])
@@ -98,11 +107,19 @@ def test_eval_loss_matches_jax(slice_inputs):
         assert int(got["num_labels"]) == int(ref["num_labels"])
 
 
-def test_greedy_decode_matches_jax(slice_inputs):
+@pytest.fixture(scope="module")
+def greedy_ref(slice_inputs):
+    """The JAX package's greedy hypotheses of the slice's batch (shared by
+    the tests below)."""
     s = slice_inputs
-    ref_hyps, ref_lens = greedy_jax(s["model"], s["variables"], _jax(s),
-                                    jnp.asarray(s["wavs"]), jnp.asarray(s["wav_lens"]),
-                                    max_symbols=12)
+    hyps, lens = greedy_jax(s["model"], s["variables"], _jax(s), jnp.asarray(s["wavs"]),
+                            jnp.asarray(s["wav_lens"]), max_symbols=12)
+    return np.asarray(hyps), np.asarray(lens)
+
+
+def test_greedy_decode_matches_jax(slice_inputs, greedy_ref):
+    s = slice_inputs
+    ref_hyps, ref_lens = greedy_ref
     model, featurizer = _port(s)
     hyps, lens = greedy_decode_waveforms(model, featurizer, torch.from_numpy(s["wavs"]),
                                          torch.from_numpy(s["wav_lens"]), max_symbols=12)
@@ -113,14 +130,12 @@ def test_greedy_decode_matches_jax(slice_inputs):
 
 
 @pytest.mark.parametrize("steps_per_check", [1, 7])
-def test_greedy_decode_check_intervals(slice_inputs, steps_per_check):
+def test_greedy_decode_check_intervals(slice_inputs, greedy_ref, steps_per_check):
     """The masked greedy loop gives test_greedy_decode_matches_jax's
     hypotheses whether the host reads the device flag every step or every
     7 steps."""
     s = slice_inputs
-    ref_hyps, ref_lens = greedy_jax(s["model"], s["variables"], _jax(s),
-                                    jnp.asarray(s["wavs"]), jnp.asarray(s["wav_lens"]),
-                                    max_symbols=12)
+    ref_hyps, ref_lens = greedy_ref
     model, featurizer = _port(s)
     feats, feat_lens = featurizer(torch.from_numpy(s["wavs"]), torch.from_numpy(s["wav_lens"]))
     with torch.no_grad():

@@ -1,8 +1,7 @@
 """The port's training slice (pika_tpu_torch) against the JAX package, on the
-same numpy inputs: the backward DP and occupancy, the fused loss's
-gradients, the plain version of K2/K3 against the interpret-mode Pallas
-backward, SpecAugment, dropout, the schedule, clipping and optimizers,
-train-mode BatchNorm, and whole train steps from identical weights.
+same numpy inputs: SpecAugment, dropout, the schedule, clipping and
+optimizers, train-mode BatchNorm, and whole train steps from identical
+weights (the loss's backward: tests/test_torch_loss_bwd.py).
 
 Tolerances: float32 arithmetic in another order, 1e-5 relative unless a test
 says otherwise; anything downstream of the encoder's attention to bf16
@@ -25,15 +24,11 @@ import torch
 from pika_tpu.features.fbank import FbankConfig as FbankJax
 from pika_tpu.features.pipeline import spec_augment as spec_augment_jax
 from pika_tpu.models.tdnn_transformer import TDNNTransformerEncoder as TDNNJax
-from pika_tpu.models.transducer import TransducerConfig as ConfigJax, init_transducer as init_jax
-from pika_tpu.ops.rnnt_loss import (
-    _chunk_channels,
-    rnnt_alpha as rnnt_alpha_jax,
-    rnnt_beta as rnnt_beta_jax,
-    rnnt_loss_fused as rnnt_loss_fused_jax,
-    rnnt_occupancy as rnnt_occupancy_jax,
+from pika_tpu.models.transducer import (
+    Transducer as TransducerJax,
+    TransducerConfig as ConfigJax,
+    init_transducer as init_jax,
 )
-from pika_tpu.ops.rnnt_pallas import joint_channels_pallas_bwd
 from pika_tpu.train import lr as lr_jax
 from pika_tpu.train.step import (
     FeaturizerConfig as FeatJax,
@@ -47,116 +42,20 @@ from pika_tpu_torch.features.pipeline import spec_augment, spec_augment_mask
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder as TDNNPt
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.models.transformer import TransformerEncoderLayer, dropout
-from pika_tpu_torch.ops.rnnt_kernels import (
-    joint_channels_bwd,
-    joint_channels_bwd_in,
-    joint_channels_bwd_reference,
-    joint_channels_bwd_w,
-)
-from pika_tpu_torch.ops.rnnt_loss import rnnt_beta, rnnt_loss_fused, rnnt_occupancy
 from pika_tpu_torch.train.lr import clip_by_inf_norm, exp_interp_schedule, make_optimizer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_train_step
 
 torch.set_num_threads(1)
 
 
+def _init_jax_jit(key, cfg):
+    """``init_transducer`` under jit (eager init takes seconds here)."""
+    return TransducerJax(cfg), jax.jit(lambda k: init_jax(k, cfg, max_t=64)[1])(key)
+
+
 def _rel_l2(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
-
-
-def _factors(rng, b, t, u1, h, v):
-    arrays = [rng.standard_normal(s).astype(np.float32) * 0.5
-              for s in ((b, t, h), (b, t, h), (b, u1, h), (b, u1, h))]
-    return arrays + [rng.standard_normal((h, v)).astype(np.float32) * 0.2,
-                     rng.standard_normal(v).astype(np.float32) * 0.1]
-
-
-# ---------------------------------------------------------------------------
-# the loss's backward
-# ---------------------------------------------------------------------------
-
-LENS = [  # (T, U, t_len, u_len): full, ragged, short, empty (t_len = 0)
-    (9, 4, [9, 6, 3, 0], [4, 2, 0, 3]),
-    (1, 1, [1, 1, 0, 1], [1, 0, 1, 1]),
-    (12, 6, [12, 12, 7, 2], [6, 1, 6, 0]),
-]
-
-
-@pytest.mark.parametrize("t,u,t_len,u_len", LENS)
-def test_beta_and_occupancy_match_jax(rng, t, u, t_len, u_len):
-    b = len(t_len)
-    blank = np.log(rng.uniform(0.05, 0.9, (b, t, u + 1))).astype(np.float32)
-    emit = np.log(rng.uniform(0.05, 0.9, (b, t, u + 1))).astype(np.float32)
-    tl, ul = np.array(t_len, np.int32), np.array(u_len, np.int32)
-    j = [jnp.asarray(x) for x in (blank, emit, tl, ul)]
-    p = [torch.from_numpy(x) for x in (blank, emit, tl, ul)]
-    np.testing.assert_allclose(rnnt_beta(*p).numpy(), np.asarray(rnnt_beta_jax(*j)),
-                               rtol=1e-5, atol=1e-4)
-    alpha = rnnt_alpha_jax(j[0], j[1], j[3])
-    ref = rnnt_occupancy_jax(j[0], j[1], None, j[2], j[3], alpha=alpha)
-    got = rnnt_occupancy(*p, alpha=torch.from_numpy(np.array(alpha)))
-    for r, g in zip(ref, got):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
-        assert not g[tl <= 0].any()  # empty utterances: no occupancy
-    # without alpha given, it is computed
-    for r, g in zip(ref, rnnt_occupancy(*p)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("backend,chunk", [("auto", 32), ("plain", 4), ("plain", 5)])
-@pytest.mark.parametrize("t,u,t_len,u_len", LENS)
-def test_fused_loss_gradients_match_jax(rng, backend, chunk, t, u, t_len, u_len):
-    """Loss and all six gradients against jax.grad of the XLA fused loss,
-    weighted per utterance; the empty utterance's loss and gradients are 0."""
-    b, h, v = len(t_len), 8, 13
-    args = _factors(rng, b, t, u + 1, h, v)
-    labels = rng.integers(1, v, (b, u)).astype(np.int32)
-    tl, ul = np.array(t_len, np.int32), np.array(u_len, np.int32)
-    weights = rng.uniform(0.5, 2.0, b).astype(np.float32)
-
-    def loss_jax(*a):
-        losses = rnnt_loss_fused_jax(*a, jnp.asarray(labels), jnp.asarray(tl), jnp.asarray(ul),
-                                     chunk, "xla")
-        return (losses * weights).sum(), losses
-
-    (_, ref_losses), ref_grads = jax.value_and_grad(loss_jax, argnums=tuple(range(6)),
-                                                    has_aux=True)(*map(jnp.asarray, args))
-    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
-    losses = rnnt_loss_fused(*leaves, torch.from_numpy(labels), torch.from_numpy(tl),
-                             torch.from_numpy(ul), chunk, backend)
-    (losses * torch.from_numpy(weights)).sum().backward()
-    np.testing.assert_allclose(losses.detach().numpy(), np.asarray(ref_losses), rtol=1e-5,
-                               atol=1e-5)
-    for name, leaf, r in zip(("ax", "gx", "ay", "gy", "w2", "b2"), leaves, ref_grads):
-        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5,
-                                   err_msg=name)
-    empty = tl <= 0
-    assert (losses.detach().numpy()[empty] == 0).all()
-    for leaf in leaves[:4]:
-        assert not leaf.grad[torch.from_numpy(empty)].any()
-
-
-@pytest.mark.parametrize("shape", [(1, 20, 6, 16, 40), (2, 13, 5, 24, 37), (2, 1, 1, 8, 16)])
-def test_bwd_reference_matches_pallas_interpret(rng, shape):
-    """K2/K3's plain version (and the CPU path of their wrappers) against the
-    Pallas backward kernels in interpret mode at mm_dtype float32, with
-    random channel cotangents (tolerance as tests/test_rnnt_pallas.py:
-    1e-4)."""
-    b, t, u1, h, v = shape
-    args = _factors(rng, b, t, u1, h, v) + [rng.integers(0, v, (b, u1)).astype(np.int32)]
-    args[-1][:, -1] = 0  # the last column's label is the blank, as in labels_ext
-    jargs = list(map(jnp.asarray, args))
-    lse = np.array(_chunk_channels(*jargs)[0])
-    cots = [(rng.standard_normal(lse.shape) * 0.1).astype(np.float32) for _ in range(3)]
-    ref = joint_channels_pallas_bwd(*jargs, jnp.asarray(lse), *map(jnp.asarray, cots),
-                                    mm_dtype=jnp.float32, block_t=8, block_u=2, block_v=16)
-    pt = [torch.from_numpy(x) for x in args + [lse] + cots]
-    for got in (joint_channels_bwd_reference(*pt, chunk=4), joint_channels_bwd(*pt),
-                joint_channels_bwd_in(*pt) + joint_channels_bwd_w(*pt)):
-        for name, r, g in zip(("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2"), ref, got):
-            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4,
-                                       err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -389,12 +288,14 @@ def step_inputs():
     valid = torch.cat([f[:n] for f, n in zip(feats, lens.tolist())]).numpy()
     offset = -valid.mean(0).astype(np.float32)
     scale = (1.0 / valid.std(0)).astype(np.float32)
-    model, variables = init_jax(jax.random.PRNGKey(4), ConfigJax(**MODEL), max_t=64)
+    model, variables = _init_jax_jit(jax.random.PRNGKey(4), ConfigJax(**MODEL))
     return dict(batches=batches, offset=offset, scale=scale, model=model,
                 variables=jax.tree.map(np.asarray, variables))
 
 
 def _jax_steps(s, n):
+    """The JAX step over the first ``n`` batches: for each step i, (losses
+    of steps 1..i, state dict after step i, step i's metrics)."""
     featurizer = featurizer_jax(
         FeatJax(fbank=FbankJax(**FBANK), max_samples=MAX_SAMPLES, lctx=1, rctx=1),
         jnp.asarray(s["offset"]), jnp.asarray(s["scale"]))
@@ -404,14 +305,29 @@ def _jax_steps(s, n):
                        opt_state=tx.init(v["params"]), batch_stats=v["batch_stats"])
     step = train_step_jax(s["model"], tx, featurizer, loss_chunk=8, loss_backend="xla",
                           donate=False)
-    losses = []
+    losses, out = [], []
     for i in range(n):
         batch = {k: jnp.asarray(x) for k, x in s["batches"][i].items()}
         state, metrics = step(state, batch, jax.random.PRNGKey(i))
         losses.append(float(metrics["loss"]))
-    sd = convert.state_dict_from_flax(jax.tree.map(
-        np.asarray, {"params": state.params, "batch_stats": state.batch_stats}))
-    return losses, sd, metrics
+        sd = convert.state_dict_from_flax(jax.tree.map(
+            np.asarray, {"params": state.params, "batch_stats": state.batch_stats}))
+        out.append((list(losses), sd, metrics))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """``_jax_steps``'s result after n steps, shared by the tests of this
+    module: the 3 steps run once per attention precision (``f32``)."""
+    runs = {}
+
+    def get(s, n, f32):
+        if f32 not in runs:
+            runs[f32] = _jax_steps(s, 3)
+        return runs[f32][n - 1]
+
+    return get
 
 
 def _port_steps(s, n, backend="auto"):
@@ -433,13 +349,13 @@ def _port_steps(s, n, backend="auto"):
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
-def test_train_steps_match_jax_f32_attention(step_inputs, f32_attention, n_steps):
+def test_train_steps_match_jax_f32_attention(step_inputs, f32_attention, jax_steps, n_steps):
     """n steps from identical weights with attention in float32 on both
     sides and the RNG off: the algorithm itself.  Losses to 1e-5 relative;
     every parameter's change and BatchNorm statistic to 2e-3 relative L2
     (measured: at most 4e-4, float32 sums in another order)."""
     s = step_inputs
-    ref_losses, ref_sd, ref_metrics = _jax_steps(s, n_steps)
+    ref_losses, ref_sd, ref_metrics = jax_steps(s, n_steps, True)
     losses, model, out = _port_steps(s, n_steps)
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
     assert int(out["num_labels"]) == int(ref_metrics["num_labels"])
@@ -456,13 +372,13 @@ def _bf16_update_tol(name):
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
-def test_train_steps_match_jax(step_inputs, n_steps):
+def test_train_steps_match_jax(step_inputs, jax_steps, n_steps):
     """n steps from identical weights in the real configuration (bf16
     attention), RNG off (dither 0, SpecAugment off, dropout 0): losses to
     1e-3 relative, parameter changes and BatchNorm statistics to the bf16
     tolerances above, the metrics equal."""
     s = step_inputs
-    ref_losses, ref_sd, ref_metrics = _jax_steps(s, n_steps)
+    ref_losses, ref_sd, ref_metrics = jax_steps(s, n_steps, False)
     losses, model, out = _port_steps(s, n_steps)
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-3)
     assert int(out["num_labels"]) == int(ref_metrics["num_labels"])

@@ -9,9 +9,10 @@ against the JAX CLI on the CPU, in-process on one 12-utterance corpus:
   relative L2; and the same with ``--loader utt`` over a feature archive;
 * a resume at an epoch boundary equal to the uninterrupted run bit for bit,
   with dither, speed/gain, SpecAugment and dropout on;
-* every flag whose path is not ported raising with its ROADMAP item, and
-  the entry points raising without a device named on a machine without a
-  card;
+* every flag whose path is not ported raising with its ROADMAP item (the
+  multi-card modes and the rnn encoder are ported: ``tests/test_torch_dist_*``
+  and ``tests/test_torch_rnn_encoder.py``), and the entry points raising
+  without a device named on a machine without a card;
 * the port's decode CLI reading the trained ``model.epoch.N``."""
 
 import inspect
@@ -261,20 +262,10 @@ BASE = ["data.lst", "log", "out", "--encoder_type", "transformer", "--device", "
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dp_mode", "bmuf"], "item 7"), (["--dp_mode", "blockadam"], "item 7"),
-    (["--dp_mode", "bmufadam"], "item 7"), (["--num_processes", "2"], "item 7"),
-    (["--num_devices", "2"], "item 7"), (["--pruned_loss_range", "4"], "item 8"),
-    (["--brnn"], "item 9"), (["--decoder_type", "transformer"], "item 9")])
+    (["--pruned_loss_range", "4"], "item 8"), (["--decoder_type", "transformer"], "item 9")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_main([*BASE, *flags])
-
-
-def test_rnn_encoder_raises():
-    """``--encoder_type rnn`` is the JAX parser's default: a command line
-    without ``--encoder_type transformer`` raises, naming item 9."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_main(["data.lst", "log", "out", "--device", "cpu"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
