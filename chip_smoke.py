@@ -157,7 +157,7 @@ from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager, gre
 from pika_tpu_torch.decode.rerank import main as rerank_main
 from pika_tpu_torch.decode.rescore import las_score_hyps
 from pika_tpu_torch.features.fbank import FbankConfig
-from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
+from pika_tpu_torch.models.transducer import Transducer, TransducerConfig, init_transducer
 from pika_tpu_torch.ops import cuda_build
 from pika_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
@@ -181,9 +181,11 @@ from pika_tpu_torch.ops import rnnt_loss
 from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_alpha,
     rnnt_loss_forward,
+    rnnt_loss_fused,
     rnnt_loss_numpy,
     rnnt_occupancy,
 )
+from pika_tpu_torch.ops.rnnt_pruned import prune_ranges, rnnt_loss_pruned, simple_channels
 from pika_tpu_torch.features.fbank import make_fbank_fn
 from pika_tpu_torch.train import common as cli_common
 from pika_tpu_torch.train.bundle import load_bundle, save_bundle
@@ -346,6 +348,10 @@ LAS_FLAGS = ["--SOS", "0", "--EOS", str(VOCAB), "--padding_tgt", str(LAS_VOCAB),
              "--final_lr", "1e-5", "--num_epochs", "1", "--num_batches_per_epoch", "20000",
              "--batch_size", "8", "--lctx", "1", "--rctx", "1", "--stride", "1",
              "--sampling_decoder", "--sampling_prob", "0.1", "--increase_sampling_prob_epoch", "2"]
+# the rerank CLI's choice against the decode CLI's where they part: their
+# fused scores within float32 rounding of sums over up to 221 per-token
+# scores (relative)
+RERANK_TIE = 1e-5
 # las_score_hyps on the card against the CPU: 2 utterances x 4 hypotheses,
 # float32 with TF32 off on both (sums in another order over 1024-wide
 # products and 6269-way softmaxes)
@@ -371,6 +377,14 @@ RNN_MODEL_FLAGS = ["--encoder_type", "rnn", "--enc_layers", "2", "--rnn_size", "
 RNN_MODEL = dict(input_dim=240, vocab_size=VOCAB, hid_dim=512, encoder_type="rnn",
                  enc_layers=2, brnn=True, dec_layers=2, embd_dim=300, dropout=0.3)
 RNN_BATCH, RNN_LABELS = 4, 25
+# the transformer prediction net at TransducerConfig's widths (d_model 512,
+# 8 heads, d_ff 2048), 2 layers, on the flagship encoder and joint
+TRANSFORMER_DECODER = dict(decoder_type="transformer", dec_layers=2)
+# the pruned objective at tools/r5_pruned_*.sh's band, its warm steps'
+# weight; the pruned loss on the card against the CPU, float32 with TF32 off
+# on both (sums in another order over 1024-wide products, 6268-way
+# logsumexps and a DP over 239 frames), per utterance
+PRUNED_RANGE, PRUNED_WARM_SCALE, PRUNED_RTOL = 5, 0.1, 1e-4
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -683,11 +697,13 @@ def inference_path(device) -> tuple[int, float]:
     return launches, loss.item()
 
 
-def train_setup(device, batch: dict, backend: str = "auto", compute_dtype=None, **model_kw):
+def train_setup(device, batch: dict, backend: str = "auto", compute_dtype=None, step_kw=None,
+                **model_kw):
     """A flagship model from seed 0 (``model_kw`` override its config) with
     bench.py's optimizer and the training featurizer (dither 1.0,
     SpecAugment), CMVN from the batch's own frames; returns
-    ``(model, step)``."""
+    ``(model, step)``, the step built with ``step_kw`` (the pruned
+    objective's arguments)."""
     model = init_transducer(TransducerConfig(**{**FLAGSHIP, **model_kw}),
                             torch.Generator(device).manual_seed(0), device)
     feat_cfg = dict(max_samples=batch["wavs"].shape[1], lctx=1, rctx=1)
@@ -702,7 +718,8 @@ def train_setup(device, batch: dict, backend: str = "auto", compute_dtype=None, 
         offset, scale, device=device)
     optimizer = make_optimizer(model.parameters(), "sgd", **OPTIM)
     return model, make_train_step(model, optimizer, featurizer, loss_chunk=16,
-                                  loss_backend=backend, compute_dtype=compute_dtype)
+                                  loss_backend=backend, compute_dtype=compute_dtype,
+                                  **(step_kw or {}))
 
 
 def dp_seconds(fn, repeats: int = 3) -> float:
@@ -1376,6 +1393,22 @@ def mbr_path(device, paths: dict) -> dict:
     return launches
 
 
+def fused_nbest_scores(lines: list) -> list:
+    """(tokens, fused score) of each line of an --ids N-best file with the
+    rnnt score and both LAS directions' per-token scores, as the rerank CLI
+    fuses them (scales 1.0, 0.3, 0.7; length-normalised; float64)."""
+    out = []
+    for line in lines:
+        parts = line.split()
+        ntok = (len(parts) - 3) // 3
+        per_token = [float(x) for x in parts[ntok + 1:]]
+        half = len(per_token) // 2
+        score = (float(parts[ntok]) + 0.3 * sum(per_token[:half])
+                 + 0.7 * sum(per_token[half:]))
+        out.append((tuple(parts[:ntok]), score / (ntok or 0.001)))
+    return out
+
+
 def las_path(device, paths: dict) -> None:
     """The LAS recipe's CLI at its width on the training CLI's bundle: one
     epoch forward and one with --reverse_labels; the decode CLI on 8
@@ -1433,9 +1466,22 @@ def las_path(device, paths: dict) -> None:
                  "--las_rescore", "--las_dirs", "both"])
     with open(os.path.join(work, "best.txt")) as f:
         reranked = [line.split() for line in f.read().splitlines()]
-    check(reranked == [best[f"utt{i}"] for i in range(BATCH)],
-          "rerank CLI on the N-best = the decode CLI's best hypotheses")
-    say("rerank CLI on the decode CLI's N-best: the same 8 best hypotheses: ok")
+    # the decode CLI reranks float32 totals, the tool float64 sums of the
+    # printed per-token scores: a row may part only where the two choices'
+    # fused scores tie to float32 rounding (hypotheses at the symbol cap
+    # that differ in a token or two)
+    parted = [i for i in range(BATCH) if reranked[i] != best[f"utt{i}"]]
+    gaps = []
+    for i in parted:
+        fused = dict(fused_nbest_scores(lines[i * NBEST:(i + 1) * NBEST]))
+        top, chosen = fused[tuple(reranked[i])], fused[tuple(best[f"utt{i}"])]
+        gaps.append(abs(top - chosen) / abs(top))
+    check(all(g <= RERANK_TIE for g in gaps),
+          f"rerank CLI on the N-best = the decode CLI's best hypotheses but at float32 ties "
+          f"(rows {parted}, relative gaps {gaps})")
+    say(f"rerank CLI on the decode CLI's N-best: {BATCH - len(parted)} of {BATCH} best "
+        f"hypotheses the same, {len(parted)} at a float32 tie of the fused scores "
+        f"(relative gaps {', '.join(f'{g:.1e}' for g in gaps) or 'none'}): ok")
 
     # the rescoring alone: 8 x 8 hypotheses of that decode, forward and
     # backward, at their length and cut to RESCORE_CUT labels
@@ -1540,9 +1586,11 @@ def one_step(device, batch: dict, what: str, backend: str = "auto", **model_kw):
 
 
 def compare_steps(what: str, got, ref, loss_rtol: float, encoder_tol: float,
-                  stats_tol: float) -> None:
+                  stats_tol: float, attention=("encoder.",)) -> None:
     """Hold one step's loss, parameter changes (``encoder_tol`` relative L2 in
-    the encoder, STEP_TOL elsewhere) and BatchNorm statistics to another's;
+    the modules named by ``attention``, whose gradients pass through
+    bf16-rounded attention: the encoder, and the transformer prediction
+    net; STEP_TOL elsewhere) and BatchNorm statistics to another's;
     quantities that are 0 but for float noise to 1e-6 absolute."""
     (la, sa), (lp, sp) = got, ref
     rel = abs(la - lp) / abs(lp)
@@ -1554,7 +1602,7 @@ def compare_steps(what: str, got, ref, loss_rtol: float, encoder_tol: float,
         p = sp[name]
         err = ((a - p).norm() / p.norm().clamp(min=1e-30)).item()
         stats = name.endswith(("running_mean", "running_var"))
-        tol = stats_tol if stats else encoder_tol if name.startswith("encoder.") else STEP_TOL
+        tol = stats_tol if stats else encoder_tol if name.startswith(attention) else STEP_TOL
         if p.abs().max().item() < 1e-6:  # a quantity that is 0 but for float noise
             err, tol = (a - p).abs().max().item(), 1e-6
         worst.append((err / tol, err, tol, name))
@@ -1948,13 +1996,15 @@ def top1_agreement(a, b) -> int:
     return int(same.sum())
 
 
-def beam_path(device) -> None:
+def beam_path(device) -> dict:
     """Beam search at the flagship width on the inference batch (beam 8,
     n_best 8, max 200 symbols): the graphed search against the eager loop
     (identical N-bests), beam 1 against greedy, the N-best's invariants,
     bf16 ("auto") against float32; wall times of greedy and beam 8, eager
     and graphed, and beam 8 at bf16; the flag-check interval; peak memory
-    (its profile is ``profile_beam``, the last phase)."""
+    (its profile is ``profile_beam``, the last phase).  Returns the wall
+    times and loop steps, which the transformer decoder's are printed
+    beside."""
     model, featurizer = eval_setup(device)
     batch = flagship_batch(device, BATCH)
     with torch.no_grad():
@@ -2018,6 +2068,8 @@ def beam_path(device) -> None:
         f"(RTF {wave_s / (BATCH * SECONDS):.5f})")
     del model, featurizer, enc
     torch.cuda.empty_cache()
+    return {"beam_s": beam_s, "beam_eager_s": eager_s, "steps": steps, "greedy_s": greedy_s,
+            "bf16_s": bf16_s}
 
 
 def profile_beam(device, work: str) -> None:
@@ -2606,6 +2658,343 @@ def dist_path(device, paths: dict) -> None:
     say(f"distributed phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def transformer_decode(device, model, featurizer, lstm: dict) -> None:
+    """Greedy and beam 8 (n_best 8, 200 symbols) of the transformer
+    prediction net on the inference batch, graphed against eager bit for
+    bit, beam 1 against greedy, bf16 ("auto") finite; wall times and loop
+    steps beside the LSTM decoder's (``lstm``, from ``beam_path``)."""
+    batch = flagship_batch(device, BATCH)
+    with torch.no_grad():
+        feats, feat_lens = featurizer(batch["wavs"], batch["wav_lens"])
+        enc = model.encode(feats, feat_lens)
+        enc_lens = model.encoder_out_len(feat_lens)
+    t_out = enc.shape[1]
+    cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
+    t0 = time.perf_counter()
+    graphed = beam_search(model, enc, enc_lens, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    beam_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg), repeats=1)
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    eager = beam_search_eager(model, enc, enc_lens, cfg)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    steps = int(graphed["steps"])
+    check(same_nbest(graphed, eager), "transformer decoder beam: graphed = eager")
+    check_nbest(graphed, t_out, "transformer decoder beam 8")
+    say(f"transformer decoder beam {BEAM}, n_best {NBEST}, B={BATCH}, T'={t_out}: graphed "
+        f"{beam_s:.4f} s ({steps} loop steps, {beam_s / steps * 1e3:.3f} ms a step; first call "
+        f"with the capture {first_s:.3f} s), eager {eager_s:.4f} s; peak memory "
+        f"{peak / 2**30:.3f} GiB; graphed = eager, N-best invariants: ok; top-1 lens "
+        f"{graphed['lens'][:, 0].tolist()}")
+    say(f"  beside the LSTM decoder (beam_path): graphed {lstm['beam_s']:.4f} s, "
+        f"{lstm['steps']} steps ({lstm['beam_s'] / lstm['steps'] * 1e3:.3f} ms a step), eager "
+        f"{lstm['beam_eager_s']:.4f} s: the transformer's search is "
+        f"{beam_s / lstm['beam_s']:.2f}x")
+    greedy = greedy_decode(model, enc, enc_lens, MAX_SYMBOLS)
+    greedy_s = dp_seconds(lambda: greedy_decode(model, enc, enc_lens, MAX_SYMBOLS), repeats=1)
+    t0 = time.perf_counter()
+    ref = greedy_decode_eager(model, enc, enc_lens, MAX_SYMBOLS)
+    torch.cuda.synchronize()
+    greedy_eager_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(greedy, ref)),
+          "transformer decoder greedy: graphed = eager")
+    check_hyps(*greedy, device)
+    beam1 = beam_search(model, enc, enc_lens, BeamConfig(beam_size=1, n_best=1,
+                                                         max_symbols=MAX_SYMBOLS))
+    check(torch.equal(beam1["tokens"][:, 0], greedy[0])
+          and torch.equal(beam1["lens"][:, 0], greedy[1]),
+          "transformer decoder: beam 1 (float32) gives greedy's tokens")
+    say(f"transformer decoder greedy: graphed {greedy_s:.4f} s, eager {greedy_eager_s:.4f} s "
+        f"(LSTM greedy graphed {lstm['greedy_s']:.4f} s); graphed = eager, beam 1 = greedy: ok")
+    bf16_cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS, mm_dtype="auto")
+    bf16 = beam_search(model, enc, enc_lens, bf16_cfg)
+    bf16_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, bf16_cfg), repeats=1)
+    check(bool(torch.isfinite(bf16["scores"]).all()), "transformer decoder beam bf16: finite")
+    check_nbest(bf16, t_out, "transformer decoder beam 8 bf16")
+    say(f"transformer decoder beam {BEAM} at bf16 (auto), graphed: {bf16_s:.4f} s, "
+        f"{int(bf16['steps'])} steps (LSTM {lstm['bf16_s']:.4f} s); top-1 agreement with "
+        f"float32 {top1_agreement(bf16, graphed)} of {BATCH} rows")
+    profile(lambda: beam_search(model, enc, enc_lens, cfg)["steps"].item(),
+            "transformer decoder beam 8 graphed")
+
+
+def transformer_decoder_path(device, paths: dict, work: str, lstm: dict) -> dict:
+    """The transformer prediction net at the flagship width (TDNN 9 x 1024,
+    hid 1024, V 6268; ConvTransformerLM at TransducerConfig's d_model 512, 8
+    heads, d_ff 2048, 2 layers): the eval step at 8 x 10 s (one K1 launch),
+    the decodes (``transformer_decode``), 3 training steps at 32 x 10 s (one
+    launch each of K1, K2 and K3 per step), one step on the kernel against
+    one on the plain loss backend; then the training CLI for 2 epochs on
+    the training CLI phase's corpus with --decoder_type transformer, the
+    decode CLI on its bundle without and with --fst_lm (``fst_path``'s
+    bigram), and one MBR CLI epoch on that bundle.  Returns the decode
+    CLI's best hypotheses and the reference file, for ``score_path``."""
+    t_phase = time.perf_counter()
+    model, featurizer = eval_setup(device, **TRANSFORMER_DECODER)
+    eval_step = make_eval_step(model, featurizer, loss_chunk=32)
+    batch = flagship_batch(device, BATCH)
+    eval_step(batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = eval_step(batch)["loss"].item()
+    eval_s = time.perf_counter() - t0
+    check(joint_channels.launches == 1 and math.isfinite(loss),
+          f"transformer decoder eval step: {joint_channels.launches} K1 launches, loss {loss}")
+    say(f"transformer decoder eval step (K1), {BATCH} x {SECONDS} s: {eval_s:.3f} s, loss "
+        f"{loss:.4f}, K1 launches 1: ok")
+    transformer_decode(device, model, featurizer, lstm)
+    del model, featurizer, eval_step
+    torch.cuda.empty_cache()
+
+    batch = flagship_batch(device, TRAIN_BATCH)
+    model, step = train_setup(device, batch, dropout=0.2, **TRANSFORMER_DECODER)
+    gen = torch.Generator(device).manual_seed(1)
+    step(batch, gen)["loss"].item()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    times, losses = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(batch, gen)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"transformer decoder train steps (decoder dropout 0.2), batch {TRAIN_BATCH} x {SECONDS} "
+        f"s: {', '.join(f'{x:.4f}' for x in times)} s, median {statistics.median(times):.4f} s; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}")
+    check(all(math.isfinite(x) for x in losses), "transformer decoder train losses finite")
+    check(all(n == TIMED_STEPS for n in launches.values()),
+          f"one launch each of K1, K2, K3 per transformer decoder step: {launches}")
+    profile(lambda: step(batch, gen)["loss"].item(), "transformer decoder train step")
+    del model, step
+    torch.cuda.empty_cache()
+    got = one_step(device, batch, "transformer decoder, auto backend", **TRANSFORMER_DECODER)
+    ref = one_step(device, batch, "transformer decoder, plain backend", "plain",
+                   **TRANSFORMER_DECODER)
+    compare_steps("transformer decoder kernel vs plain backend", got, ref, STEP_LOSS_RTOL,
+                  STEP_ENCODER_TOL, STATS_TOL, attention=("encoder.", "decoder."))
+
+    # the CLIs on the training CLI phase's corpus
+    exp = os.path.join(work, "exp_tdec")
+    log = os.path.join(work, "tdec.log")
+    reset_launches()
+    cli_run("train CLI --decoder_type transformer", [
+        os.path.join(paths["train"], "data.lst"), log, exp, *CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS,
+        "--decoder_type", "transformer", "--feat_config", paths["fbank"],
+        "--cmvn_stats", paths["stats"], "--device", str(device),
+        "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--num_epochs", str(CLI_EPOCHS),
+        "--valid_data_lst", os.path.join(paths["valid"], "data.lst")], log)
+    cli_launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                    "K3": joint_channels_bwd_w.launches}
+    check(all(n > 0 for n in cli_launches.values()),
+          f"the transformer decoder CLI launched K1-K3: {cli_launches}")
+    bundle = os.path.join(exp, f"model.epoch.{CLI_EPOCHS - 1}")
+    check(load_bundle(bundle, "cpu")[0].config.decoder_type == "transformer",
+          "the CLI's bundle has the transformer decoder")
+    valid = paths["valid"]
+    units = os.path.join(work, "units.txt")
+    with open(units, "w") as f:
+        f.write("".join(f"u{k} {k}\n" for k in range(VOCAB)))
+    decode = [os.path.join(valid, "wav.scp"), "--beam_size", str(BEAM), "--n_best", str(NBEST),
+              "--max_wav_seconds", str(int(CLI_SECONDS[1]) + 1), "--feat_config", paths["fbank"],
+              "--cmvn_stats", paths["stats"], "--ref_labels",
+              f"ark:{os.path.join(valid, 'label.txt')}", "--device", str(device)]
+    out = {}
+    for name, extra in (("plain", []), ("--fst_lm", [
+            "--fst_lm", os.path.join(work, "lm.arpa"), "--fst_lm_scale", str(FST_SCALE),
+            "--nonblk_reward", str(FST_REWARD), "--fst_cache_file", "auto",
+            "--symbols_map", units])):
+        nbest = os.path.join(work, f"tdec_nbest_{len(out)}.txt")
+        t0 = time.perf_counter()
+        best, err = decode_cli_best([bundle, decode[0], nbest, *decode[1:], *extra])
+        with open(nbest) as f:
+            n_lines = len(f.read().splitlines())
+        wer_lines = [x for x in err if x.startswith("%WER")]
+        say(f"decode CLI {name} on the transformer decoder's bundle: "
+            f"{time.perf_counter() - t0:.3f} s, {n_lines} N-best lines; {' | '.join(wer_lines)}")
+        check(n_lines == CLI_UTTS["valid"] * NBEST and len(wer_lines) == 1,
+              f"decode CLI {name}: {n_lines} N-best lines, a WER line")
+        out[name] = (best, wer_lines[0])
+
+    mbr_log = os.path.join(work, "tdec_mbr.log")
+    reset_launches()
+    cli_run("MBR CLI on the transformer decoder's bundle", [
+        paths["mbr_lst"], mbr_log, os.path.join(work, "tdec_mbr"), *MBR_FLAGS, "--num_epochs",
+        "1", "--init_model", bundle, "--feat_config", paths["fbank"],
+        "--cmvn_stats", paths["stats"], "--device", str(device)], mbr_log, mbr_main)
+    mbr_launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                    "K3": joint_channels_bwd_w.launches}
+    check(all(n > 0 for n in mbr_launches.values()),
+          f"the MBR CLI on the transformer decoder launched K1-K3: {mbr_launches}")
+    say(f"transformer decoder phase: {time.perf_counter() - t_phase:.3f} s (CLI launches "
+        f"{cli_launches}, MBR CLI {mbr_launches})")
+    return {"best": out["plain"][0], "wer_line": out["plain"][1],
+            "ref": os.path.join(valid, "label.txt")}
+
+
+def pruned_path(device, paths: dict, full_step_s: float) -> None:
+    """The pruned objective on the card: the full band held to the fused
+    loss (K1) and its gradients to K2 + K3; ``prune_ranges`` and the pruned
+    loss on the card against the CPU; 3 training steps at 32 x 10 s with
+    --pruned_loss_range 5 and one warm step (pruned_scale 0.1), beside the
+    full-loss step of ``train_path``, and a profiled step; then the
+    training CLI for 2 epochs with --pruned_loss_range 5
+    --pruned_warmup_epochs 1 (a warm epoch, then a full one; validation
+    through K1)."""
+    t_phase = time.perf_counter()
+    with torch.device("meta"):
+        t_out = Transducer(TransducerConfig(**FLAGSHIP)).encoder_out_len(
+            1 + (SR * SECONDS - 400) // 160)  # 25 ms frames, 10 ms hop
+    u1 = U_MAX + 1
+    ax, gx, ay, gy, w2, b2, labels_ext = joint_case(device, 7, BATCH, t_out, u1, 1024, VOCAB)
+    labels = labels_ext[:, :-1].clamp(min=1)
+    t_len = torch.full((BATCH,), t_out, device=device)
+    u_len = torch.full((BATCH,), U_MAX, device=device)
+    f1 = [x.clone().requires_grad_() for x in (ax, gx, ay, gy, w2, b2)]
+    f2 = [x.clone().requires_grad_() for x in (ax, gx, ay, gy, w2, b2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rnnt_loss_pruned(*f1, labels, t_len, u_len,
+                           torch.zeros(BATCH, t_out, dtype=torch.long, device=device), u1)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    ref = rnnt_loss_fused(*f2, labels, t_len, u_len, 16)
+    ref.sum().backward()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    grads = {n: ((a.grad - b.grad).norm() / b.grad.norm()).item()
+             for n, a, b in zip(("ax", "gx", "ay", "gy", "w2", "b2"), f1, f2)}
+    say(f"pruned loss, full band (s_range {u1}, s_begin 0) at {BATCH} x {t_out} x {u1}, float32 "
+        f"products, {band_s:.3f} s with its backward: losses vs the fused loss (K1, bf16 "
+        f"products) rel L2 {rel:.3e}, gradients vs K2 + K3 rel L2 "
+        + ", ".join(f"{n} {e:.2e}" for n, e in grads.items()) + f" (envelope {ENVELOPE})")
+    check(rel <= ENVELOPE and all(e <= ENVELOPE for e in grads.values()),
+          "full-band pruned loss within the bf16 envelope of K1-K3")
+    del f1, f2, got, ref
+
+    # the card against the CPU: band starts from the simple joint, then the
+    # pruned loss on one set of band starts
+    g = torch.Generator().manual_seed(8)
+    am = torch.randn(BATCH, t_out, VOCAB, generator=g) * 2
+    lm = torch.randn(BATCH, u1, VOCAB, generator=g) * 2
+    cpu_labels = labels.cpu()
+    t_len_cpu = torch.randint(t_out // 2, t_out + 1, (BATCH,), generator=g)
+    u_len_cpu = torch.randint(U_MAX // 2, U_MAX + 1, (BATCH,), generator=g)
+    with torch.no_grad():
+        blank_lp, emit_lp = simple_channels(am, lm, cpu_labels)
+    cpu_sb = prune_ranges(blank_lp, emit_lp, t_len_cpu, u_len_cpu, PRUNED_RANGE)
+    card_sb = prune_ranges(blank_lp.to(device), emit_lp.to(device), t_len_cpu.to(device),
+                           u_len_cpu.to(device), PRUNED_RANGE).cpu()
+    for sb in (cpu_sb, card_sb):
+        check(bool((sb[:, 0] == 0).all() and (sb.diff(dim=1) >= 0).all()
+                   and (sb.diff(dim=1) <= PRUNED_RANGE - 1).all()
+                   and (sb <= (u_len_cpu + 1 - PRUNED_RANGE).clamp(min=0)[:, None]).all()),
+              "prune_ranges invariants")
+    g_blank, g_emit = rnnt_occupancy(blank_lp, emit_lp, t_len_cpu, u_len_cpu)
+    gamma = -(g_blank + g_emit).double()
+    u = torch.arange(u1)
+
+    def mass(sb):
+        return (gamma * ((u >= sb[..., None]) & (u < sb[..., None] + PRUNED_RANGE))).sum((1, 2))
+
+    differ = (card_sb != cpu_sb).any(dim=1)
+    ties = int(differ.sum())
+    check(bool(((mass(card_sb) - mass(cpu_sb)).abs()[differ]
+                <= 1e-5 * mass(cpu_sb).abs().clamp(min=1.0)[differ]).all()),
+          "prune_ranges: the card's band starts equal the CPU's but at float32 ties")
+    say(f"prune_ranges card vs CPU ({BATCH} x {t_out}, U {U_MAX}, s_range {PRUNED_RANGE}): "
+        f"{BATCH - ties} of {BATCH} utterances equal, {ties} differ at a float32 tie of two "
+        f"bands' posterior mass; invariants: ok")
+    factors = [x.detach().cpu() for x in (ax, gx, ay, gy, w2, b2)]
+    with torch.no_grad():
+        loss_cpu = rnnt_loss_pruned(*factors, cpu_labels, t_len_cpu, u_len_cpu, cpu_sb,
+                                    PRUNED_RANGE)
+        loss_card = rnnt_loss_pruned(*(x.to(device) for x in factors), labels, t_len_cpu.to(device),
+                                     u_len_cpu.to(device), cpu_sb.to(device), PRUNED_RANGE).cpu()
+    rel = ((loss_card - loss_cpu).abs() / loss_cpu.abs().clamp(min=1e-30)).max().item()
+    say(f"pruned loss card vs CPU on the CPU's band starts: max rel err {rel:.3e} (rtol "
+        f"{PRUNED_RTOL}); losses {', '.join(f'{x:.3f}' for x in loss_cpu.tolist())}")
+    check(rel <= PRUNED_RTOL and bool((loss_cpu > 0).all()), "pruned loss card vs CPU")
+    del ax, gx, ay, gy, w2, b2, am, lm
+
+    batch = flagship_batch(device, TRAIN_BATCH)
+    for scale in (PRUNED_WARM_SCALE, 1.0):
+        model, step = train_setup(device, batch, simple_joint=True, step_kw=dict(
+            pruned_range=PRUNED_RANGE, simple_scale=0.5, pruned_scale=scale))
+        gen = torch.Generator(device).manual_seed(1)
+        step(batch, gen)["loss"].item()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        times, losses = [], []
+        for _ in range(TIMED_STEPS if scale == 1.0 else 1):
+            t0 = time.perf_counter()
+            losses.append(step(batch, gen)["loss"].item())
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                    "K3": joint_channels_bwd_w.launches}
+        median = statistics.median(times)
+        say(f"pruned train step{'s' if len(times) > 1 else ''} (s_range {PRUNED_RANGE}, "
+            f"pruned_scale {scale}), batch {TRAIN_BATCH} x {SECONDS} s: "
+            f"{', '.join(f'{x:.4f}' for x in times)} s, median {median:.4f} s "
+            f"({median / full_step_s:.2f}x the full-loss step's {full_step_s:.4f} s); losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory {peak / 2**30:.3f} GiB; "
+            f"launches {launches}")
+        check(all(math.isfinite(x) for x in losses), "pruned train losses finite")
+        check(all(n == 0 for n in launches.values()),
+              "the pruned objective runs outside K1-K3 (plain PyTorch, as in the JAX package)")
+        if scale == 1.0:
+            profile(lambda: step(batch, gen)["loss"].item(), "pruned train step")
+        del model, step
+        torch.cuda.empty_cache()
+
+    work = os.path.dirname(paths["stats"])
+    log = os.path.join(work, "pruned.log")
+    reset_launches()
+    lines, _, _ = cli_run("train CLI --pruned_loss_range 5", [
+        os.path.join(paths["train"], "data.lst"), log, os.path.join(work, "exp_pruned"),
+        *CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS, "--pruned_loss_range", str(PRUNED_RANGE),
+        "--pruned_warmup_epochs", "1", "--feat_config", paths["fbank"],
+        "--cmvn_stats", paths["stats"], "--device", str(device),
+        "--num_batches_per_epoch", str(CLI_BATCHES_PER_EPOCH), "--num_epochs", str(CLI_EPOCHS),
+        "--valid_data_lst", os.path.join(paths["valid"], "data.lst")], log)
+    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+                "K3": joint_channels_bwd_w.launches}
+    check(sum("valid loss/label" in x for x in lines) == CLI_EPOCHS and launches["K1"] > 0,
+          f"pruned CLI: validation through K1 ({launches})")
+    say(f"pruned phase: {time.perf_counter() - t_phase:.3f} s (CLI launches {launches}: K1 in "
+        f"validation only)")
+
+
+def score_path(decoded: dict, work: str) -> None:
+    """``python -m pika_tpu_torch.decode.score`` on the transformer decode
+    CLI's best hypotheses against the references, with and without
+    --char: without it, the decode CLI's own %WER line."""
+    hyp = os.path.join(work, "score_hyp.txt")
+    with open(hyp, "w") as f:
+        for uttid, toks in decoded["best"].items():
+            f.write(" ".join([uttid, *toks]) + "\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for extra in ([], ["--char"]):
+        out = subprocess.run([sys.executable, "-m", "pika_tpu_torch.decode.score",
+                              decoded["ref"], hyp, *extra], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        lines = out.stdout.splitlines()
+        check(out.returncode == 0 and len(lines) == 2 and lines[0].startswith("%WER")
+              and lines[1].startswith("%SER"), f"score CLI {extra}: {out.stderr[-1000:]}")
+        if not extra:
+            check(lines[0] == decoded["wer_line"],
+                  f"score CLI: {lines[0]!r} vs the decode CLI's {decoded['wer_line']!r}")
+        say(f"score CLI {' '.join(extra) or '(words)'}: {' | '.join(lines)}"
+            + ("" if extra else " (= the decode CLI's WER line)"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the GPU only",
@@ -2637,7 +3026,7 @@ def main() -> int:
     inference_launches, exact_loss = inference_path(device)
     flash_inference_path(device, exact_loss)
     held = torch.cuda.memory_allocated(device)
-    beam_path(device)
+    lstm_beam = beam_path(device)
     flash_beam_path(device)
     eval_cli_path(device)
     fst_path(device, work)
@@ -2645,11 +3034,14 @@ def main() -> int:
         f"{(torch.cuda.memory_allocated(device) - held) / 2**20:+.1f} MiB")
     long_utterances(device)
     small_heads_path(device)
-    launches, _ = train_path(device)
+    launches, full_step_s = train_path(device)
     cli_launches, cli_paths = train_cli_path(device, os.path.join(work, "train_cli"))
     mbr_launches = mbr_path(device, cli_paths)
     las_path(device, cli_paths)
     dist_path(device, cli_paths)
+    decoded = transformer_decoder_path(device, cli_paths, work, lstm_beam)
+    score_path(decoded, work)
+    pruned_path(device, cli_paths, full_step_s)
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)

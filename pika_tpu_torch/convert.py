@@ -11,6 +11,10 @@ the torch modules here carry the flax module names.  Layout rules:
 * BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var``
                                    -> ``weight``/``bias``/``running_mean``/``running_var``
 * LayerNorm ``scale``/``bias``     -> ``weight``/``bias``
+  (the transformer prediction net's ``conv_{i}``, ``transformer_{i}``,
+  ``layer_norm`` and ``linear_out``, the attention's
+  ``relative_positions_embeddings`` table and the pruned loss's
+  ``simple_am``/``simple_lm`` heads come under these rules)
 * LSTM ``l{k}_d0_wih`` (in, 4H), ``l{k}_d0_whh`` (H, 4H), ``l{k}_d0_b`` (4H,)
                                    -> ``weight_ih_l{k}`` (4H, in), ``weight_hh_l{k}`` (4H, H),
                                       ``bias_l{k}``; gate order i, f, g, o on both sides;

@@ -1,5 +1,5 @@
 """Batched RNN-T beam search with n-gram FST shallow fusion (port of
-``pika_tpu/decode/beam.py``, LSTM prediction net).
+``pika_tpu/decode/beam.py``).
 
 The JAX search is one ``lax.while_loop`` over fixed-shape (B, K) arrays;
 here it is a ``decode.loop.DecodeLoop`` over (B, K) tensors with the same
@@ -7,7 +7,10 @@ update order as the JAX ``body``: one CUDA graph of the body on the card,
 the same body eagerly on the CPU.
 
 * per-beam time pointers advance on blank;
-* the prediction net advances only for non-blank beams;
+* the prediction net advances only for non-blank beams: the LSTM net by
+  one step from the selected beams' gathered states, the transformer net
+  (no incremental step) by a re-forward of every beam's whole token
+  buffer, (B*K, max_symbols) with its lengths (``predict_last``);
 * duplicate partial hypotheses are pruned: rolling hashes (uint32
   arithmetic, carried in int64 and masked to 32 bits) as a prefilter, then
   equal token buffers;
@@ -116,6 +119,7 @@ class BeamLoop(DecodeLoop):
         mcfg = net.config
         dtype = net.fc2.weight.dtype
         self.net, self.cfg = net, cfg
+        self.is_rnn = mcfg.decoder_type == "rnn"
         k, n, um, h = cfg.beam_size, cfg.n_best, cfg.max_symbols, mcfg.hid_dim
         self.max_steps = t_max + um
         self.max_bodies = self.max_steps + 1  # the last one sees the loop's end
@@ -140,14 +144,15 @@ class BeamLoop(DecodeLoop):
             "hashes": torch.zeros(b, k, **longs),
             "dec_ay": torch.zeros(b, k, h, **floats),
             "dec_gy": torch.zeros(b, k, h, **floats),
-            "dec_h": torch.zeros(layers, b, k, h, **floats),
-            "dec_c": torch.zeros(layers, b, k, h, **floats),
             "fin_scores": torch.zeros(b, n, device=device),
             "fin_tokens": torch.zeros(b, n, um, **longs),
             "fin_lens": torch.zeros(b, n, **longs),
             "fin_aligns": torch.zeros(b, n, self.max_steps, **longs),
             "fin_align_lens": torch.zeros(b, n, **longs),
         }
+        if self.is_rnn:
+            self.state["dec_h"] = torch.zeros(layers, b, k, h, **floats)
+            self.state["dec_c"] = torch.zeros(layers, b, k, h, **floats)
         # FST fusion: the tables are inputs the graph reads in place
         self.fst, self.fst_start = fst_tables, fst_start
         self.use_lm = fst_tables is not None
@@ -187,21 +192,28 @@ class BeamLoop(DecodeLoop):
 
     def reset(self, enc_out, enc_lens) -> None:
         net, st, cfg = self.net, self.state, self.cfg
-        layers, b, k, h = st["dec_h"].shape
+        b, k, h = st["dec_ay"].shape
+        dev = enc_out.device
         # encoder-side joint factors, hoisted out of the loop
         ax_all, gx_all = net.joint_enc_factors(enc_out.to(net.fc2.weight.dtype))
         self.inputs["ax_all"].copy_(ax_all)
         self.inputs["gx_all"].copy_(gx_all)
         self.inputs["enc_lens"].copy_(enc_lens)
         # every beam consumed SOS (= blank); beam 0 live, the others NEG
-        zeros = torch.zeros(layers, b * k, h, device=enc_out.device, dtype=st["dec_h"].dtype)
-        dec_hid, (h0, c0) = net.predict_step(
-            torch.full((b * k,), cfg.blank, device=enc_out.device), (zeros, zeros))
+        if self.is_rnn:
+            layers = st["dec_h"].shape[0]
+            zeros = torch.zeros(layers, b * k, h, device=dev, dtype=st["dec_h"].dtype)
+            dec_hid, (h0, c0) = net.predict_step(torch.full((b * k,), cfg.blank, device=dev),
+                                                 (zeros, zeros))
+            st["dec_h"].copy_(h0.reshape(layers, b, k, h))
+            st["dec_c"].copy_(c0.reshape(layers, b, k, h))
+        else:
+            dec_hid = net.predict_last(
+                torch.zeros(b * k, cfg.max_symbols, dtype=torch.long, device=dev),
+                torch.zeros(b * k, dtype=torch.long, device=dev))
         ay, gy = net.joint_dec_factors(dec_hid)
         st["dec_ay"].copy_(ay.reshape(b, k, h))
         st["dec_gy"].copy_(gy.reshape(b, k, h))
-        st["dec_h"].copy_(h0.reshape(layers, b, k, h))
-        st["dec_c"].copy_(c0.reshape(layers, b, k, h))
         st["running"].fill_(True)
         st["scores"].fill_(NEG)
         st["scores"][:, 0] = 0.0
@@ -221,7 +233,7 @@ class BeamLoop(DecodeLoop):
     def body(self) -> None:
         st, net, cfg, fst = self.state, self.net, self.cfg, self.fst
         ax_all, gx_all, enc_lens = (self.inputs[x] for x in ("ax_all", "gx_all", "enc_lens"))
-        layers, b, k, h = st["dec_h"].shape
+        b, k, h = st["dec_ay"].shape
         t_max = ax_all.shape[1]
         n, um, blank = cfg.n_best, cfg.max_symbols, cfg.blank
         vocab = net.config.vocab_size
@@ -338,8 +350,6 @@ class BeamLoop(DecodeLoop):
         tokens, lens, aligns, align_lens, hashes, t_idx, dec_ay, dec_gy = (
             _gather_beams(st[x], prev_k) for x in ("tokens", "lens", "aligns", "align_lens",
                                                    "hashes", "t_idx", "dec_ay", "dec_gy"))
-        beam_idx = prev_k[None, :, :, None].expand(layers, -1, -1, h)
-        dec_h, dec_c = st["dec_h"].gather(2, beam_idx), st["dec_c"].gather(2, beam_idx)
 
         emit = tok != blank
         # record the alignment step (blank or not)
@@ -351,30 +361,42 @@ class BeamLoop(DecodeLoop):
                              tok[..., None], tokens)
         hashes = torch.where(emit, (hashes * HASH_MULT + tok + 1) & HASH_MASK, hashes)
 
-        # prediction-net advance for emitting beams only
-        new_hid, (nh, nc) = net.predict_step(
-            tok.reshape(b * k), (dec_h.reshape(layers, b * k, h), dec_c.reshape(layers, b * k, h)))
-        new_ay, new_gy = net.joint_dec_factors(new_hid)
+        lens = lens + emit.long()
         keep = emit[..., None]
-        new = {
+        new = {}
+        # prediction-net advance for emitting beams only
+        if self.is_rnn:
+            layers = st["dec_h"].shape[0]
+            beam_idx = prev_k[None, :, :, None].expand(layers, -1, -1, h)
+            dec_h, dec_c = st["dec_h"].gather(2, beam_idx), st["dec_c"].gather(2, beam_idx)
+            new_hid, (nh, nc) = net.predict_step(
+                tok.reshape(b * k),
+                (dec_h.reshape(layers, b * k, h), dec_c.reshape(layers, b * k, h)))
+            new["dec_h"] = torch.where(keep[None], nh.reshape(layers, b, k, h), dec_h)
+            new["dec_c"] = torch.where(keep[None], nc.reshape(layers, b, k, h), dec_c)
+        else:
+            # a dead beam may take a token past a full buffer (um + 1): its
+            # prefix ends at the buffer's end (the JAX gather fills NaN there)
+            new_hid = net.predict_last(tokens.clamp(min=0).reshape(b * k, um),
+                                       lens.clamp(max=um).reshape(b * k))
+        new_ay, new_gy = net.joint_dec_factors(new_hid)
+        new.update({
             "step": st["step"] + 1,
             "scores": new_scores,
             "t_idx": torch.where(emit, t_idx, t_idx + 1),
             "tokens": tokens,
-            "lens": lens + emit.long(),
+            "lens": lens,
             "aligns": aligns,
             "align_lens": align_lens + 1,
             "hashes": hashes,
             "dec_ay": torch.where(keep, new_ay.reshape(b, k, h), dec_ay),
             "dec_gy": torch.where(keep, new_gy.reshape(b, k, h), dec_gy),
-            "dec_h": torch.where(keep[None], nh.reshape(layers, b, k, h), dec_h),
-            "dec_c": torch.where(keep[None], nc.reshape(layers, b, k, h), dec_c),
             "fin_scores": top_fin,
             "fin_tokens": merged("fin_tokens", "tokens"),
             "fin_lens": merged("fin_lens", "lens"),
             "fin_aligns": merged("fin_aligns", "aligns"),
             "fin_align_lens": merged("fin_align_lens", "align_lens"),
-        }
+        })
         if use_lm:
             lm_prev = _gather_beams(st["lm_scores"], prev_k)
             if use_bias:

@@ -1,5 +1,4 @@
-"""Batched greedy RNN-T decoding (port of ``pika_tpu/decode/greedy.py``,
-LSTM prediction net).
+"""Batched greedy RNN-T decoding (port of ``pika_tpu/decode/greedy.py``).
 
 Time-synchronous greedy search: at each step run the joint on the current
 (encoder frame, prediction-net state) pair and take the argmax; a blank
@@ -7,6 +6,11 @@ advances the frame, a label is emitted and advances the prediction net.  The
 JAX ``while_loop`` becomes a ``decode.loop.DecodeLoop`` with the same bound
 and update order: one CUDA graph of the body on the card, the same body
 eagerly on the CPU.
+
+The LSTM prediction net advances by one step per emission; the transformer
+net, which has no incremental step, re-forwards each row's whole prefix
+(``Transducer.predict_last`` over the (B, max_symbols) hypothesis buffer)
+and the emitting rows take its output.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ class GreedyLoop(DecodeLoop):
         cfg = net.config
         dtype = net.fc2.weight.dtype
         self.net, self.blank, self.max_symbols = net, blank, max_symbols
+        self.is_rnn = cfg.decoder_type == "rnn"
         self.max_bodies = t_max + max_symbols + 1  # the last one sees the loop's end
         h = cfg.hid_dim
         zeros = dict(device=device, dtype=dtype)
@@ -41,25 +46,34 @@ class GreedyLoop(DecodeLoop):
             "done": torch.zeros(b, dtype=torch.bool, device=device),
             "dec_ay": torch.zeros(b, h, **zeros),
             "dec_gy": torch.zeros(b, h, **zeros),
-            "dec_h": torch.zeros(cfg.dec_layers, b, h, **zeros),
-            "dec_c": torch.zeros(cfg.dec_layers, b, h, **zeros),
             "hyps": torch.zeros(b, max_symbols, dtype=torch.long, device=device),
             "hyp_len": torch.zeros(b, dtype=torch.long, device=device),
         }
+        if self.is_rnn:
+            self.state["dec_h"] = torch.zeros(cfg.dec_layers, b, h, **zeros)
+            self.state["dec_c"] = torch.zeros(cfg.dec_layers, b, h, **zeros)
 
     def reset(self, enc_out, enc_lens) -> None:
         net, st, b = self.net, self.state, enc_out.shape[0]
+        dev = enc_out.device
         ax_all, gx_all = net.joint_enc_factors(enc_out.to(net.fc2.weight.dtype))
         self.inputs["ax_all"].copy_(ax_all)
         self.inputs["gx_all"].copy_(gx_all)
         self.inputs["enc_lens"].copy_(enc_lens)
         # the prediction net first consumes SOS (= blank)
-        zeros = torch.zeros_like(st["dec_h"])
-        dec_hid, (h, c) = net.predict_step(
-            torch.full((b,), self.blank, device=enc_out.device), (zeros, zeros))
+        if self.is_rnn:
+            zeros = torch.zeros_like(st["dec_h"])
+            dec_hid, (h, c) = net.predict_step(torch.full((b,), self.blank, device=dev),
+                                               (zeros, zeros))
+            st["dec_h"].copy_(h)
+            st["dec_c"].copy_(c)
+        else:  # the empty prefix: SOS alone
+            dec_hid = net.predict_last(
+                torch.zeros(b, self.max_symbols, dtype=torch.long, device=dev),
+                torch.zeros(b, dtype=torch.long, device=dev))
         ay, gy = net.joint_dec_factors(dec_hid)
-        for name, value in (("dec_ay", ay), ("dec_gy", gy), ("dec_h", h), ("dec_c", c)):
-            st[name].copy_(value)
+        st["dec_ay"].copy_(ay)
+        st["dec_gy"].copy_(gy)
         st["running"].fill_(True)
         st["step"].zero_()
         st["t_idx"].zero_()
@@ -80,22 +94,23 @@ class GreedyLoop(DecodeLoop):
         t_idx = torch.where(is_blank, st["t_idx"] + 1, st["t_idx"])
         emit = ~is_blank
         pos = st["hyp_len"].clamp(0, self.max_symbols - 1)
-        # advance the prediction net only on emitting rows
-        new_hid, (new_h, new_c) = net.predict_step(tok, (st["dec_h"], st["dec_c"]))
-        new_ay, new_gy = net.joint_dec_factors(new_hid)
+        hyps = torch.where(emit[:, None] & (self.slots == pos[:, None]), tok[:, None],
+                           st["hyps"])
+        hyp_len = st["hyp_len"] + emit.long()
         keep = emit[:, None]
-        self.commit({
-            "step": st["step"] + 1,
-            "t_idx": t_idx,
-            "done": st["done"] | (t_idx >= enc_lens),
-            "hyps": torch.where(emit[:, None] & (self.slots == pos[:, None]), tok[:, None],
-                                st["hyps"]),
-            "hyp_len": st["hyp_len"] + emit.long(),
-            "dec_h": torch.where(keep[None], new_h, st["dec_h"]),
-            "dec_c": torch.where(keep[None], new_c, st["dec_c"]),
-            "dec_ay": torch.where(keep, new_ay, st["dec_ay"]),
-            "dec_gy": torch.where(keep, new_gy, st["dec_gy"]),
-        })
+        new = {"step": st["step"] + 1, "t_idx": t_idx, "done": st["done"] | (t_idx >= enc_lens),
+               "hyps": hyps, "hyp_len": hyp_len}
+        # advance the prediction net only on emitting rows
+        if self.is_rnn:
+            new_hid, (new_h, new_c) = net.predict_step(tok, (st["dec_h"], st["dec_c"]))
+            new["dec_h"] = torch.where(keep[None], new_h, st["dec_h"])
+            new["dec_c"] = torch.where(keep[None], new_c, st["dec_c"])
+        else:
+            new_hid = net.predict_last(hyps.clamp(min=0), hyp_len)
+        new_ay, new_gy = net.joint_dec_factors(new_hid)
+        new["dec_ay"] = torch.where(keep, new_ay, st["dec_ay"])
+        new["dec_gy"] = torch.where(keep, new_gy, st["dec_gy"])
+        self.commit(new)
 
 
 def _greedy(model, enc_out, enc_lens, max_symbols, mm_dtype, blank, steps_per_check, graphed):

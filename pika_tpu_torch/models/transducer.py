@@ -1,5 +1,6 @@
-"""RNN-Transducer: TDNN-Transformer or LSTM encoder + LSTM prediction net +
-gated, factorized joint (port of ``pika_tpu/models/transducer.py``).
+"""RNN-Transducer: TDNN-Transformer or LSTM encoder + LSTM or
+conv-transformer prediction net + gated, factorized joint (port of
+``pika_tpu/models/transducer.py``).
 
 Joint:  h(t, u) = tanh(fc1_x x_t + fc1_y y_u) * sigmoid(gate_x x_t + gate_y y_u)
         z(t, u) = W2 h(t, u) + b2
@@ -16,11 +17,21 @@ an ``enc_layers`` LSTM of width ``hid_dim`` over the frames, bidirectional
 with ``brnn`` (half the width each way), masked by the frame lengths; it
 does not subsample, so ``encoder_out_len`` is the identity.
 
+The ``transformer`` prediction net (``decoder_type="transformer"``) is a
+``ConvTransformerLM`` of ``dec_layers`` layers (``dec_d_model``,
+``dec_heads``, ``dec_d_ff``) over the embedded labels, masked causally and
+by the label lengths.  It has no incremental step: the decode loops take
+``predict_last``, a full re-forward of each prefix.
+
+``simple_joint`` adds the pruned loss's two linear heads ``simple_am`` and
+``simple_lm`` (``simple_factors``; ``ops/rnnt_pruned.py``); the decoders
+leave them unused.
+
 Train mode is the module's own (``model.train()``): the TDNN encoder's
 BatchNorm takes batch statistics and updates its running ones, its
 transformer layers drop out with ``tdnn_transformer_dropout``, and the LSTMs
-(the rnn encoder's, the prediction net's) between their layers with
-``dropout``, drawing their masks from the generator passed to ``encode``
+(the rnn encoder's, the LSTM prediction net's) between their layers and the
+transformer prediction net's layers with ``dropout``, drawing their masks from the generator passed to ``encode``
 and ``predict``.
 """
 
@@ -34,14 +45,14 @@ import torch
 from torch import nn
 
 from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.models.conv_transformer_lm import ConvTransformerLM
 from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
 
 
 @dataclasses.dataclass(frozen=True)
 class TransducerConfig:
-    """Same fields and defaults as ``pika_tpu.models.TransducerConfig``;
-    ``Transducer`` rejects the values whose paths are not ported yet."""
+    """Same fields and defaults as ``pika_tpu.models.TransducerConfig``."""
 
     input_dim: int
     vocab_size: int          # labels 0..V-1, blank = 0
@@ -75,15 +86,8 @@ class Transducer(nn.Module):
     def __init__(self, config: TransducerConfig, device=None):
         super().__init__()
         cfg = config
-        if cfg.decoder_type != "rnn":
-            raise NotImplementedError(
-                f"decoder {cfg.decoder_type!r}: the transformer prediction net is not ported "
-                "yet: ROADMAP Queue 1 item 9")
         if cfg.encoder_type not in ("rnn", "tdnn_transformer"):
             raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
-        if cfg.simple_joint:
-            raise NotImplementedError("simple_joint (the pruned loss's heads) is not ported yet: "
-                                      "ROADMAP Queue 1 item 8")
         self.config = cfg
         h = cfg.hid_dim
         if cfg.encoder_type == "rnn":
@@ -96,12 +100,20 @@ class Transducer(nn.Module):
                 attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
                 remat=cfg.remat, device=device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
-        self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, cfg.dropout, device=device)
+        if cfg.decoder_type == "rnn":
+            self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, cfg.dropout, device=device)
+        else:
+            self.decoder = ConvTransformerLM(
+                cfg.embd_dim, h, d_model=cfg.dec_d_model, num_layers=cfg.dec_layers,
+                heads=cfg.dec_heads, d_ff=cfg.dec_d_ff, dropout_rate=cfg.dropout, device=device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
         self.fc1_y = nn.Linear(h, h, device=device)
         self.gate_x = nn.Linear(h, h, bias=False, device=device)
         self.gate_y = nn.Linear(h, h, device=device)
         self.fc2 = nn.Linear(h, cfg.vocab_size, device=device)
+        if cfg.simple_joint:
+            self.simple_am = nn.Linear(h, cfg.vocab_size, device=device)
+            self.simple_lm = nn.Linear(h, cfg.vocab_size, device=device)
 
     def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -121,20 +133,23 @@ class Transducer(nn.Module):
     def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Prediction net over labels with SOS prepended: (B, U) -> (B, U+1, H).
-        Positions at or past ``y_len + 1`` take the padding embedding row.
-        Train mode drops out between the LSTM layers with masks from
-        ``generator``."""
+        Positions at or past ``y_len + 1`` take the padding embedding row
+        (and the transformer net's key mask).  Train mode drops out with
+        masks from ``generator``."""
         pad_id = self.config.pad_id
         y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
+        pad_pos = None
         if y_len is not None:
             pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
             y_in = torch.where(pad_pos, pad_id, y_in)
-        out, _ = self.decoder(self.embed(y_in.clamp(0, pad_id).long()), generator)
-        return out
+        emb = self.embed(y_in.clamp(0, pad_id).long())
+        if self.config.decoder_type == "rnn":
+            return self.decoder(emb, generator)[0]
+        return self.decoder(emb, pad_positions=pad_pos, generator=generator)
 
     def predict_step(self, y_tok: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
-        """One incremental prediction-net step: y_tok (B,), state = (h, c),
-        each (layers, B, H) -> (out (B, H), new_state)."""
+        """One incremental step of the LSTM prediction net: y_tok (B,),
+        state = (h, c), each (layers, B, H) -> (out (B, H), new_state)."""
         emb = self.embed(y_tok.clamp(0, self.config.pad_id).long())
         top, h, c = lstm_stack_step(self.decoder, emb, state[0], state[1])
         return top, (h, c)
@@ -142,7 +157,7 @@ class Transducer(nn.Module):
     def predict_last(self, tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """Prediction-net output after a full prefix: (B, Um) tokens with
         per-row lengths -> (B, H), the output at position ``lens`` (SOS
-        included)."""
+        included).  The transformer net's decode step: a full re-forward."""
         dec = self.predict(tokens, lens)
         return dec.gather(1, lens.long()[:, None, None].expand(-1, 1, dec.shape[-1]))[:, 0]
 
@@ -171,6 +186,11 @@ class Transducer(nn.Module):
         ax, gx, ay, gy = self.joint_factors(enc_out, dec_out)
         return self.joint_from_factors(ax[:, :, None], gx[:, :, None], ay[:, None], gy[:, None])
 
+    def simple_factors(self, enc_out: torch.Tensor, dec_out: torch.Tensor):
+        """The pruned loss's additive joint, ``logit(t, u) = am[t] + lm[u]``:
+        (am (B, T, V), lm (B, U+1, V)); needs ``simple_joint``."""
+        return self.simple_am(enc_out), self.simple_lm(dec_out)
+
     def joint_params(self):
         """(W2 (H, V), b2 (V,)) of the output projection, in the JAX layout."""
         return self.fc2.weight.t().contiguous(), self.fc2.bias
@@ -183,8 +203,9 @@ class Transducer(nn.Module):
         return torch.log_softmax(out, dim=-1) if softmax else out
 
     def decode_net(self, dtype: torch.dtype) -> "Transducer":
-        """A Transducer without an encoder, holding the prediction net and
-        the joint in ``dtype``: what the decode loops run.  At this model's
+        """A Transducer without an encoder (and without the simple heads),
+        holding the prediction net and the joint in ``dtype``: what the
+        decode loops run.  At this model's
         own dtype it shares this model's modules; in another it holds a
         copy, which the loops keep across calls and refresh in place with
         ``load_decode_weights`` before each search, so a captured CUDA
@@ -194,7 +215,7 @@ class Transducer(nn.Module):
         nn.Module.__init__(net)
         net.config = self.config
         for name, mod in self.named_children():
-            if name != "encoder":
+            if name not in ("encoder", "simple_am", "simple_lm"):
                 setattr(net, name, mod if share else
                         copy.deepcopy(mod).to(dtype).requires_grad_(False).eval())
         return net

@@ -29,6 +29,14 @@ probabilities, so the core holds O(T * qc) at a time.  It is the full
 path's function; in train mode its dropout is always the head-shared mask.
 A recomputed block draws the same mask as its forward
 (``checkpoint_with_generator``).
+
+``max_relative_positions`` m > 0 adds clipped relative positions to
+self-attention (queries and keys of one length, as in the JAX layer): a
+``relative_positions_embeddings`` table of 2m+1 rows of d_head, and the
+score of query i and key j gains ``q_i . table[clip(j - i, -m, m) + m]``.
+The full path gathers the (Tq, Tk, d_head) table; the query-blocked path
+forms the (B, H, qc, 2m+1) products of a block with the table and gathers
+from them, so nothing quadratic in T beyond the block's scores exists.
 """
 
 from __future__ import annotations
@@ -106,12 +114,36 @@ def checkpoint_with_generator(fn: Callable, generator: Optional[torch.Generator]
     return out
 
 
+def relative_positions_matrix(length: int, max_relative_positions: int, device=None,
+                              start: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """(rows, L) clipped relative position ids ``clip(j - i, -m, m) + m`` in
+    [0, 2m] of queries i = start .. start + rows - 1 (all L by default) and
+    keys j < L."""
+    m = max_relative_positions
+    i = torch.arange(start, start + (length if rows is None else rows), device=device)
+    return (torch.arange(length, device=device)[None, :] - i[:, None]).clamp(-m, m) + m
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """(1, L, L) bool mask, True above the diagonal (future positions)."""
+    return torch.ones(1, length, length, dtype=torch.bool, device=device).triu(1)
+
+
+def padding_mask(tokens: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    """(B, L, L) bool: True where the key position holds ``padding_idx``."""
+    b, length = tokens.shape
+    return (tokens == padding_idx)[:, None, :].expand(b, length, length)
+
+
 def attention_core(q, k, v, mask, rate: float, head_shared: bool,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
-    """softmax(q kᵀ) v over bf16 q, k, v (q already scaled): float32 scores,
-    probabilities rounded to bf16, dropout of ``rate`` (head-shared or per
-    element), float32 output (B, H, Tq, d)."""
+                   generator: Optional[torch.Generator], rel_scores=None) -> torch.Tensor:
+    """softmax(q kᵀ + rel_scores) v over bf16 q, k, v (q already scaled):
+    float32 scores, probabilities rounded to bf16, dropout of ``rate``
+    (head-shared or per element), float32 output (B, H, Tq, d).
+    ``rel_scores`` is the relative-position term (B, H, Tq, Tk) or None."""
     scores = q.float() @ k.float().transpose(-1, -2)
+    if rel_scores is not None:
+        scores = scores + rel_scores
     if mask is not None:
         scores = scores.masked_fill(mask[:, None], -1e18)
     attn = _bf16(torch.softmax(scores, dim=-1))
@@ -125,14 +157,13 @@ class MultiHeadedAttention(nn.Module):
     In train mode, dropout of ``dropout_rate`` on the probabilities.
     ``use_flash``: the core through K4 where the JAX layer takes its flash
     kernel; ``q_chunk``: the query-blocked core; ``cheap_dropout``: the
-    head-shared mask on the probabilities (module docstring).
-
-    Clipped relative positions are not ported yet.
+    head-shared mask on the probabilities; ``max_relative_positions``: the
+    clipped relative positions of self-attention (module docstring).
     """
 
     def __init__(self, head_count: int, model_dim: int, dropout_rate: float = 0.0,
                  use_flash: bool = False, q_chunk: int = 0, cheap_dropout: bool = False,
-                 device=None):
+                 max_relative_positions: int = 0, device=None):
         super().__init__()
         self.head_count = head_count
         self.model_dim = model_dim
@@ -140,9 +171,13 @@ class MultiHeadedAttention(nn.Module):
         self.use_flash = use_flash
         self.q_chunk = q_chunk
         self.cheap_dropout = cheap_dropout
+        self.max_relative_positions = max_relative_positions
         self.linear_keys = nn.Linear(model_dim, model_dim, device=device)
         self.linear_values = nn.Linear(model_dim, model_dim, device=device)
         self.linear_query = nn.Linear(model_dim, model_dim, device=device)
+        if max_relative_positions > 0:
+            self.relative_positions_embeddings = nn.Embedding(
+                2 * max_relative_positions + 1, model_dim // head_count, device=device)
         self.final_linear = nn.Linear(model_dim, model_dim, device=device)
 
     def forward(self, key, value, query, mask: Optional[torch.Tensor] = None,
@@ -159,17 +194,32 @@ class MultiHeadedAttention(nn.Module):
         q = split_heads(self.linear_query(query))
         q = q / torch.tensor(math.sqrt(d_head), dtype=torch.bfloat16)  # scaled after the cast
         rate = self.dropout_rate if self.training else 0.0
+        m, tk = self.max_relative_positions, k.shape[2]
+        table = self.relative_positions_embeddings.weight.float() if m > 0 and tq == tk else None
         if 0 < self.q_chunk < tq:
             qc = self.q_chunk
             drop = generator if rate > 0.0 else None
+
+            def block(q_c, m_c, start, g):
+                rel = None
+                if table is not None:  # gather from the block's (B, H, qc, 2m+1) products
+                    prod = q_c.float() @ table.t()
+                    ids = relative_positions_matrix(tk, m, q.device, start, q_c.shape[2])
+                    rel = prod.gather(-1, ids.expand(*prod.shape[:2], *ids.shape))
+                return attention_core(q_c, k, v, m_c, rate, True, g, rel)
+
             ctx = torch.cat([checkpoint_with_generator(
-                lambda q_c, m_c, g: attention_core(q_c, k, v, m_c, rate, True, g), drop,
-                q[:, :, i:i + qc], None if mask is None else mask[:, i:i + qc])
+                block, drop, q[:, :, i:i + qc], None if mask is None else mask[:, i:i + qc], i)
                 for i in range(0, tq, qc)], dim=2)
-        elif self.use_flash and mask is None and tq == k.shape[2] and rate == 0.0:
+        elif (self.use_flash and mask is None and table is None and tq == tk
+              and rate == 0.0):
             ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
         else:
-            ctx = attention_core(q, k, v, mask, rate, self.cheap_dropout, generator)
+            rel = None
+            if table is not None:  # q . table[rel_ids] for each (query, key) pair
+                rel = torch.einsum("bhqd,qkd->bhqk", q.float(),
+                                   table[relative_positions_matrix(tk, m, q.device)])
+            ctx = attention_core(q, k, v, mask, rate, self.cheap_dropout, generator, rel)
         ctx = ctx.to(query.dtype).transpose(1, 2).reshape(b, tq, dim)
         return self.final_linear(ctx)
 
@@ -193,17 +243,20 @@ class PositionwiseFeedForward(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm self-attention block + FFN: ``x + dropout(attn(LN(x)))``
     then the FFN, with dropout of ``dropout_rate`` in train mode;
-    ``attn_flash``, ``attn_q_chunk`` and ``attn_cheap_dropout`` are the
-    attention's ``use_flash``, ``q_chunk`` and ``cheap_dropout``."""
+    ``attn_flash``, ``attn_q_chunk``, ``attn_cheap_dropout`` and
+    ``max_relative_positions`` are the attention's ``use_flash``,
+    ``q_chunk``, ``cheap_dropout`` and ``max_relative_positions``."""
 
     def __init__(self, d_model: int, heads: int, d_ff: int, dropout_rate: float = 0.0,
                  attn_flash: bool = False, attn_q_chunk: int = 0,
-                 attn_cheap_dropout: bool = False, device=None):
+                 attn_cheap_dropout: bool = False, max_relative_positions: int = 0,
+                 device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.self_attn = MultiHeadedAttention(heads, d_model, dropout_rate, attn_flash,
-                                              attn_q_chunk, attn_cheap_dropout, device=device)
+                                              attn_q_chunk, attn_cheap_dropout,
+                                              max_relative_positions, device=device)
         self.feed_forward = PositionwiseFeedForward(d_model, d_ff, dropout_rate, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,

@@ -1,6 +1,6 @@
 """RNN-T loss, the fused joint-channel kernels K1 (forward), K2 and K3
-(backward), the flash-attention kernel K4 (forward and backward), and the
-batched edit distance of the MBR step."""
+(backward), the flash-attention kernel K4 (forward and backward), the
+pruned RNN-T loss, and the batched edit distance of the MBR step."""
 
 from pika_tpu_torch.ops.edit_distance import edit_distance_batch
 from pika_tpu_torch.ops.flash_attention import (
@@ -30,4 +30,12 @@ from pika_tpu_torch.ops.rnnt_loss import (
     rnnt_loss_fused,
     rnnt_loss_numpy,
     rnnt_occupancy,
+)
+from pika_tpu_torch.ops.rnnt_pruned import (
+    prune_ranges,
+    rnnt_alpha_banded,
+    rnnt_loss_pruned,
+    rnnt_loss_pruned_numpy,
+    rnnt_loss_simple,
+    simple_channels,
 )

@@ -122,8 +122,7 @@ def resolve_cheap_dropout(args) -> bool:
 
 
 def add_train_args(parser: argparse.ArgumentParser) -> None:
-    """Training flags, the JAX CLI's set (the training CLI raises on the
-    values whose paths are not ported)."""
+    """Training flags, the JAX CLI's set."""
     parser.add_argument("--init_model", type=str, default=None)
     parser.add_argument("--cmn", action="store_true")
     parser.add_argument("--cmvn_stats", type=str, default=None)
@@ -169,10 +168,15 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                         help="auto and pallas: the kernels K1-K3 (their plain versions on the "
                              "CPU); xla: their plain PyTorch versions on every device")
     parser.add_argument("--pruned_loss_range", type=int, default=0,
-                        help="the pruned RNN-T objective: not ported yet (ROADMAP Queue 1 "
-                             "item 8)")
-    parser.add_argument("--simple_loss_scale", type=float, default=0.5)
-    parser.add_argument("--pruned_warmup_epochs", type=int, default=2)
+                        help="N > 0: the pruned RNN-T objective (ops/rnnt_pruned.py): the full "
+                             "gated joint only on a band of N label positions a frame, picked "
+                             "by an additive 'simple' joint whose two linear heads it adds to "
+                             "the model (config.simple_joint); 0: the full-lattice fused loss")
+    parser.add_argument("--simple_loss_scale", type=float, default=0.5,
+                        help="weight of the simple joint's loss under --pruned_loss_range")
+    parser.add_argument("--pruned_warmup_epochs", type=int, default=2,
+                        help="epochs whose steps weigh the banded term 0.1 while the simple "
+                             "joint's alignment settles (a cold simple joint picks noise bands)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="model compute precision (master params, gradients and "

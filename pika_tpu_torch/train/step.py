@@ -3,8 +3,10 @@ features) -> features -> model -> RNN-T loss (port of
 ``pika_tpu/train/step.py``).
 
 The train step runs the loss through K1 forward and K2/K3 backward
-(``ops/rnnt_loss.py:rnnt_loss_fused``), then the optimizer of
-``train/lr.py``.  Every random draw of a step (dither, SpecAugment, dropout)
+(``ops/rnnt_loss.py:rnnt_loss_fused``), or with ``pruned_range > 0`` the
+pruned objective (``ops/rnnt_pruned.py``, plain PyTorch as in the JAX
+package), then the optimizer of ``train/lr.py``.  The eval step always
+takes the full fused loss (K1).  Every random draw of a step (dither, SpecAugment, dropout)
 comes from the one ``torch.Generator`` passed to it, so two runs from the
 same seed draw the same numbers.
 
@@ -16,7 +18,8 @@ float32 as flax does); the gradients reach the masters through the casts;
 the joint's factors go back to float32 before the loss, so K1-K3 see the
 inputs they see at float32; the BatchNorm statistics are updated in
 float32.
-Not ported: the scanned multi-step and the pruned loss.
+Not ported: the scanned multi-step (``--steps_per_dispatch``), which only
+groups the JAX package's steps into one XLA dispatch.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from pika_tpu_torch.features.pipeline import (
 )
 from pika_tpu_torch.models.transducer import Transducer
 from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
+from pika_tpu_torch.ops.rnnt_pruned import prune_ranges, rnnt_loss_pruned, rnnt_loss_simple
 from pika_tpu_torch.train.lr import Optimizer
 
 
@@ -112,17 +116,34 @@ def batch_inputs(batch):
 
 def transducer_loss(model: Transducer, feats, feat_lens, labels, label_lens,
                     loss_chunk: int = 32, loss_backend: str = "auto",
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, pruned_range: int = 0,
+                    simple_scale: float = 0.5, pruned_scale: float = 1.0) -> torch.Tensor:
     """Summed RNN-T loss of a batch through the fused joint, in the model's
     mode (train: batch statistics and dropout from ``generator``), with
     autograd unless the caller turned it off.  The joint's factors enter the
     loss in float32 whatever the model's dtype.  ``loss_backend`` is that
-    of ``rnnt_loss_fused``."""
+    of ``rnnt_loss_fused``.
+
+    ``pruned_range > 0`` takes the pruned objective instead (a model with
+    ``simple_joint``): ``pruned_scale`` times the full gated joint's loss on
+    a band of ``pruned_range`` label positions a frame, picked by the simple
+    joint, plus ``simple_scale`` times the simple joint's loss, over T-chunks
+    of ``max(loss_chunk, 64)`` frames.  ``pruned_scale < 1`` is the
+    trainers' warmup (0.1 for the first ``--pruned_warmup_epochs``): a
+    cold simple joint picks noise bands, which the pruned term would lock
+    in."""
     enc_lens = model.encoder_out_len(feat_lens)
     enc = model.encode(feats, feat_lens, generator=generator)
     dec = model.predict(labels, label_lens, generator=generator)
     ax, gx, ay, gy = (x.float().contiguous() for x in model.joint_factors(enc, dec))
     w2, b2 = (x.float().contiguous() for x in model.joint_params())
+    if pruned_range > 0:
+        am, lm = (x.float() for x in model.simple_factors(enc, dec))
+        simple, (blank_lp, emit_lp) = rnnt_loss_simple(am, lm, labels, enc_lens, label_lens)
+        s_begin = prune_ranges(blank_lp, emit_lp, enc_lens, label_lens, pruned_range)
+        pruned = rnnt_loss_pruned(ax, gx, ay, gy, w2, b2, labels, enc_lens, label_lens, s_begin,
+                                  pruned_range, chunk=max(loss_chunk, 64))
+        return pruned_scale * pruned.sum() + simple_scale * simple.sum()
     losses = rnnt_loss_fused(ax, gx, ay, gy, w2, b2, labels, enc_lens, label_lens,
                              loss_chunk, loss_backend)
     return losses.sum()
@@ -154,7 +175,8 @@ def loss_and_backward_cast(model: Transducer, dtype: torch.dtype, feats, *args) 
 
 def make_train_step(model: Transducer, optimizer: Optimizer, featurizer: Callable,
                     loss_chunk: int = 32, loss_backend: str = "auto",
-                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                    compute_dtype: Optional[torch.dtype] = None, pruned_range: int = 0,
+                    simple_scale: float = 0.5, pruned_scale: float = 1.0) -> Callable:
     """Build ``step(batch, generator) -> {"loss", "num_labels", "num_frames"}``
     over a batch dict of ``wavs`` and ``wav_lens`` (or ``feats`` and
     ``feat_lens`` with a ``make_feats_featurizer``), ``labels`` and
@@ -167,7 +189,8 @@ def make_train_step(model: Transducer, optimizer: Optimizer, featurizer: Callabl
     random draw comes from ``generator``.  ``loss_backend="plain"`` takes
     the plain versions of K1, K2 and K3 even on CUDA tensors.
     ``compute_dtype=torch.bfloat16`` runs the model in bf16 over float32
-    masters (module docstring).
+    masters (module docstring).  ``pruned_range``, ``simple_scale`` and
+    ``pruned_scale`` select the pruned objective (``transducer_loss``).
     """
 
     def step(batch, generator: torch.Generator):
@@ -176,7 +199,7 @@ def make_train_step(model: Transducer, optimizer: Optimizer, featurizer: Callabl
         try:
             feats, feat_lens = featurizer(*batch_inputs(batch), generator)
             args = (feat_lens, batch["labels"], batch["label_lens"], loss_chunk, loss_backend,
-                    generator)
+                    generator, pruned_range, simple_scale, pruned_scale)
             optimizer.zero_grad()
             if compute_dtype is None or compute_dtype == torch.float32:
                 loss = transducer_loss(model, feats, *args)

@@ -33,10 +33,12 @@ which the decode CLI reads) while the other ranks wait; ``--resume``
 continues from the newest checkpoint.  The log lines are the JAX CLI's;
 ``WORKER-ID`` in LOG becomes the rank.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item: ``--pruned_loss_range > 0`` (item 8) and ``--decoder_type
-transformer`` (item 9).  ``--steps_per_dispatch`` is accepted and has no
-effect.
+``--decoder_type transformer`` builds the conv-transformer prediction net;
+``--pruned_loss_range N`` adds the simple joint's heads and trains the
+pruned objective (``train/step.py``) in the sync path and every BMUF
+variant, its banded term weighed 0.1 for the first
+``--pruned_warmup_epochs`` epochs; validation always takes the full fused
+loss (K1).  ``--steps_per_dispatch`` is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -97,23 +99,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported(args) -> None:
-    """The flags whose paths are not ported raise, naming their ROADMAP
-    item, instead of being ignored.  With ``--init_model`` the bundle's
-    configuration replaces the model flags (as in the JAX CLI), and loading
-    it raises on the unported model types."""
-    fresh = not args.init_model
-    unported = [
-        (args.pruned_loss_range > 0,
-         "--pruned_loss_range > 0 (the pruned loss): ROADMAP Queue 1 item 8"),
-        (fresh and args.decoder_type == "transformer",
-         "--decoder_type transformer (the transformer prediction net): ROADMAP Queue 1 item 9"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
-
-
 def make_model(args, input_dim: int, device: torch.device):
     """(model, config): from ``--init_model`` (a port bundle, whose
     configuration wins, as in the JAX CLI) or fresh from ``--seed``."""
@@ -123,11 +108,13 @@ def make_model(args, input_dim: int, device: torch.device):
     cfg = TransducerConfig(
         input_dim=input_dim, vocab_size=args.output_dim, hid_dim=args.rnn_size,
         encoder_type="tdnn_transformer" if args.encoder_type == "transformer" else "rnn",
-        decoder_type="rnn", enc_layers=args.enc_layers,
+        decoder_type="transformer" if args.decoder_type == "transformer" else "rnn",
+        enc_layers=args.enc_layers,
         dec_layers=args.dec_layers, embd_dim=args.embd_dim, dropout=args.dropout,
         brnn=args.brnn, tdnn_nhid=args.tdnn_nhid, tdnn_layers=args.tdnn_layers,
         tdnn_transformer_dropout=args.tdnn_transformer_dropout, remat=args.remat,
-        attn_chunk=args.attn_chunk, attn_cheap_dropout=common.resolve_cheap_dropout(args))
+        attn_chunk=args.attn_chunk, attn_cheap_dropout=common.resolve_cheap_dropout(args),
+        simple_joint=args.pruned_loss_range > 0)
     return init_transducer(cfg, torch.Generator(device).manual_seed(args.seed), device), cfg
 
 
@@ -270,7 +257,6 @@ def _host_copy(state):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
     common.launch(args, run)
 
 
@@ -341,8 +327,15 @@ def train(args, device: torch.device, log_f) -> None:
 
     backend = "plain" if args.loss_backend == "xla" else "auto"
     cdt = torch.bfloat16 if args.compute_dtype == "bfloat16" else None
-    step = make_train_step(model, optimizer, featurizer, loss_chunk=args.loss_chunk,
-                           loss_backend=backend, compute_dtype=cdt)
+    def build_step(pruned_scale):
+        return make_train_step(model, optimizer, featurizer, loss_chunk=args.loss_chunk,
+                               loss_backend=backend, compute_dtype=cdt,
+                               pruned_range=args.pruned_loss_range,
+                               simple_scale=args.simple_loss_scale, pruned_scale=pruned_scale)
+
+    full_step = build_step(1.0)
+    # the pruned objective's warmup: the banded term at 0.1 for the first epochs
+    warm_step = build_step(0.1) if args.pruned_loss_range > 0 else full_step
     utt_box = [0]  # utterances consumed this epoch (all ranks), for the epoch summary
 
     def save_tmp():
@@ -353,6 +346,7 @@ def train(args, device: torch.device, log_f) -> None:
     def run_epoch(epoch):
         logger = Logger(log_f, args.log_per_n_frames, ["Loss"])
         generator = torch.Generator(device).manual_seed(common.seed_for(args, epoch))
+        step = warm_step if epoch < args.pruned_warmup_epochs else full_step
         pending = []  # device metrics, read every DRAIN_EVERY steps (no per-step sync)
 
         def drain():

@@ -40,7 +40,8 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_w_reference,
     joint_channels_reference,
 )
-from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused
+from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused, rnnt_occupancy
+from pika_tpu_torch.ops.rnnt_pruned import prune_ranges, rnnt_loss_pruned, simple_channels
 
 pytestmark = pytest.mark.gpu
 # the module itself: the package re-exports a function of the same name
@@ -524,11 +525,11 @@ DECODE_MODEL = dict(input_dim=60, vocab_size=300, hid_dim=128, encoder_type="tdn
                     decoder_type="rnn", dec_layers=2, embd_dim=32, tdnn_nhid=64, tdnn_layers=5)
 
 
-def _decode_case(device, b=3, t=10, seed=0):
-    model = init_transducer(TransducerConfig(**DECODE_MODEL),
+def _decode_case(device, b=3, t=10, seed=0, model_cfg=DECODE_MODEL):
+    model = init_transducer(TransducerConfig(**model_cfg),
                             torch.Generator(device).manual_seed(0), device)
     g = torch.Generator(device).manual_seed(seed)
-    enc = torch.randn(b, t, DECODE_MODEL["hid_dim"], generator=g, device=device) * 2
+    enc = torch.randn(b, t, model_cfg["hid_dim"], generator=g, device=device) * 2
     lens = torch.tensor([t, max(1, t // 2), 1][:b] + [t] * max(0, b - 3), device=device)
     return model, enc, lens
 
@@ -982,3 +983,75 @@ def test_bmuf_round_over_nccl_equals_gloo_on_cpu(cuda_device, variant):
                             b[k] if isinstance(b[k], list) else [b[k]]):
                 torch.testing.assert_close(x, y, rtol=1e-5, atol=atol,
                                            msg=lambda m, k=k: f"{variant} {k}: {m}")
+
+
+# the transformer prediction net's decode loops: the re-forward of every
+# prefix captured in the graph, against the eager loop, bit for bit
+TRANSFORMER_MODEL = dict(DECODE_MODEL, decoder_type="transformer", dec_d_model=64, dec_heads=4,
+                         dec_d_ff=128)
+
+
+@pytest.mark.parametrize("mm_dtype", [None, "auto"])
+def test_transformer_decoder_graph_matches_eager(cuda_device, mm_dtype):
+    model, enc, lens = _decode_case(cuda_device, model_cfg=TRANSFORMER_MODEL)
+    cfg = BeamConfig(beam_size=4, n_best=4, max_symbols=12, mm_dtype=mm_dtype)
+    graphed = beam_search(model, enc, lens, cfg)
+    _assert_same_nbest(graphed, beam_search_eager(model, enc, lens, cfg))
+    assert torch.isfinite(graphed["scores"][:, 0]).all()
+    for a, b in zip(greedy_decode(model, enc, lens, 12, mm_dtype=mm_dtype),
+                    greedy_decode_eager(model, enc, lens, 12, mm_dtype=mm_dtype)):
+        assert torch.equal(a, b)
+    assert all(loop.graph is not None for loop in model._decode_loops.values())
+
+
+# the pruned loss on the card: with the full band it is the fused loss, whose
+# kernels round h, W2 and dz to bf16 (the pruned loss is float32): within
+# BASELINE.md's bf16 envelope
+def test_full_band_pruned_loss_matches_kernels(cuda_device):
+    ax, gx, ay, gy, w2, b2, labels_ext = _case(cuda_device, 3, 20, 8, 32, 70, seed=2)
+    labels = labels_ext[:, :-1].clamp(min=1)
+    t_len = torch.tensor([20, 11, 6], device=cuda_device)
+    u_len = torch.tensor([7, 4, 2], device=cuda_device)
+    f1 = [x.clone().requires_grad_() for x in (ax, gx, ay, gy, w2, b2)]
+    f2 = [x.clone().requires_grad_() for x in (ax, gx, ay, gy, w2, b2)]
+    got = rnnt_loss_pruned(*f1, labels, t_len, u_len,
+                           torch.zeros(3, 20, dtype=torch.long, device=cuda_device), 8, chunk=7)
+    ref = rnnt_loss_fused(*f2, labels, t_len, u_len)
+    got.sum().backward()
+    ref.sum().backward()
+    assert _rel_l2(got.detach(), ref.detach()) <= ENVELOPE
+    for name, a, b in zip(GRAD_NAMES, f1, f2):
+        assert _rel_l2(a.grad, b.grad) <= ENVELOPE, name
+
+
+def _band_mass(blank_lp, emit_lp, t_len, u_len, sb, s_range):
+    """Each utterance's posterior mass inside its band (float64, CPU)."""
+    g_blank, g_emit = rnnt_occupancy(blank_lp, emit_lp, t_len, u_len)
+    u = torch.arange(blank_lp.shape[2])
+    band = (u >= sb[..., None]) & (u < sb[..., None] + s_range)
+    return (-(g_blank + g_emit).double() * band).sum(dim=(1, 2))
+
+
+@pytest.mark.parametrize("s_range", [3, 5])
+def test_prune_ranges_on_card_equals_cpu(cuda_device, s_range):
+    """The card's band starts equal the CPU's on every utterance but those
+    whose two bands hold the same posterior mass to float32 rounding (a
+    tie between windows); both meet the first-frame and cap invariants."""
+    g = torch.Generator().manual_seed(4)
+    b, t, u, v = 16, 60, 12, 40
+    am, lm = torch.randn(b, t, v, generator=g) * 2, torch.randn(b, u + 1, v, generator=g) * 2
+    labels = torch.randint(1, v, (b, u), generator=g)
+    t_len = torch.randint(u // 2, t + 1, (b,), generator=g)
+    u_len = torch.randint(0, u + 1, (b,), generator=g)
+    blank_lp, emit_lp = simple_channels(am, lm, labels)
+    cpu = prune_ranges(blank_lp, emit_lp, t_len, u_len, s_range)
+    card = prune_ranges(*(x.to(cuda_device) for x in (blank_lp, emit_lp, t_len, u_len)),
+                        s_range).cpu()
+    for sb in (cpu, card):
+        assert (sb[:, 0] == 0).all() and (sb.diff(dim=1) >= 0).all()
+        assert (sb <= (u_len + 1 - s_range).clamp(min=0)[:, None]).all()
+    differ = (card != cpu).any(dim=1)
+    mass = _band_mass(blank_lp, emit_lp, t_len, u_len, card, s_range)
+    mass_ref = _band_mass(blank_lp, emit_lp, t_len, u_len, cpu, s_range)
+    assert ((mass - mass_ref).abs()[differ] <= 1e-5 * mass_ref.abs().clamp(min=1.0)[differ]).all()
+    assert int(differ.sum()) < b // 2

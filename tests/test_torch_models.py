@@ -176,12 +176,16 @@ def test_joint(tiny, rng):
 
 
 def test_unported_options_raise():
-    """The model types and heads not ported raise, naming their ROADMAP
-    item; the chunked attention and the rnn encoder are ported and build."""
-    for kw, item in ((dict(decoder_type="transformer"), "item 9"),
-                     (dict(simple_joint=True), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, **kw)))
+    """Every model option of the JAX package builds (none raises any more):
+    the transformer prediction net, the pruned loss's simple heads, the
+    chunked attention and the rnn encoder."""
+    model = transducer_pt.Transducer(transducer_pt.TransducerConfig(
+        **dict(TINY, decoder_type="transformer", dec_d_model=8, dec_heads=2, dec_d_ff=16)))
+    assert model.decoder.conv_0.weight.shape == (8, TINY["embd_dim"], 5)
+    assert model.decoder.linear_out.weight.shape == (TINY["hid_dim"], 8)
+    model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, simple_joint=True)))
+    assert model.simple_am.weight.shape == model.simple_lm.weight.shape == (
+        TINY["vocab_size"], TINY["hid_dim"])
     model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, attn_chunk=64)))
     assert model.encoder.transformer_0.self_attn.q_chunk == 64
     model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, encoder_type="rnn",

@@ -425,7 +425,7 @@ def test_unported_train_options_raise(step_inputs):
     """LSTM dropout, the cheap attention dropout and remat, once raising in
     train mode, now run there: eval mode is unchanged by them, train mode
     draws from the generator (tests/test_torch_train_options.py holds them
-    to the JAX package); only the pruned loss's heads still raise."""
+    to the JAX package); the pruned loss's heads, once raising, build."""
     x = torch.randn(2, 64, 3 * MEL, generator=torch.Generator().manual_seed(1))
     y = torch.randint(1, 20, (2, 5), generator=torch.Generator().manual_seed(2))
     base = init_transducer(TransducerConfig(**MODEL), torch.Generator().manual_seed(0),
@@ -443,6 +443,8 @@ def test_unported_train_options_raise(step_inputs):
             gen = torch.Generator().manual_seed(3)
             enc, dec = model.encode(x, generator=gen), model.predict(y, generator=gen)
         assert torch.isfinite(enc).all() and torch.isfinite(dec).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        init_transducer(TransducerConfig(**dict(MODEL, simple_joint=True)),
-                        torch.Generator().manual_seed(0), device="cpu")
+    # the pruned loss's heads build too, and leave encode and predict as they were
+    model = init_transducer(TransducerConfig(**dict(MODEL, simple_joint=True)),
+                            torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        assert torch.equal(model.encode(x), ref[0]) and torch.equal(model.predict(y), ref[1])

@@ -9,10 +9,9 @@ against the JAX CLI on the CPU, in-process on one 12-utterance corpus:
   relative L2; and the same with ``--loader utt`` over a feature archive;
 * a resume at an epoch boundary equal to the uninterrupted run bit for bit,
   with dither, speed/gain, SpecAugment and dropout on;
-* every flag whose path is not ported raising with its ROADMAP item (the
-  multi-card modes and the rnn encoder are ported: ``tests/test_torch_dist_*``
-  and ``tests/test_torch_rnn_encoder.py``), and the entry points raising
-  without a device named on a machine without a card;
+* the flags that raised until their paths were ported (the pruned loss,
+  the transformer prediction net) training an epoch, and the entry points
+  raising without a device named on a machine without a card;
 * the port's decode CLI reading the trained ``model.epoch.N``."""
 
 import inspect
@@ -258,14 +257,21 @@ def test_resume_equals_uninterrupted_run(corpus, tmp_path):
     assert len((tmp_path / "nbest.txt").read_text().splitlines()) == N_UTTS * 2
 
 
-BASE = ["data.lst", "log", "out", "--encoder_type", "transformer", "--device", "cpu"]
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--pruned_loss_range", "4"], "item 8"), (["--decoder_type", "transformer"], "item 9")])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_main([*BASE, *flags])
+@pytest.mark.parametrize("flags,field", [
+    (["--pruned_loss_range", "4"], "simple_joint"), (["--decoder_type", "transformer"],
+                                                     "decoder_type")])
+def test_unported_flags_raise(corpus, tmp_path, flags, field):
+    """The flags that raised until their paths were ported (the pruned loss,
+    the transformer prediction net) now train an epoch and save a bundle of
+    their configuration (tests/test_torch_pruned_cli.py and
+    tests/test_torch_conv_lm_cli.py hold them to the JAX CLI)."""
+    d = corpus
+    train_main([str(d / "data.lst"), str(tmp_path / "log"), str(tmp_path / "out"),
+                *MODEL_FLAGS, *TRAIN_FLAGS, *flags, "--feat_config", str(d / "fbank0.conf"),
+                "--cmvn_stats", str(d / "cmvn.stats"), "--num_epochs", "1", "--device", "cpu"])
+    model, _ = load_bundle(str(tmp_path / "out" / "model.epoch.0"), device="cpu")
+    assert getattr(model.config, field) in (True, "transformer")
+    assert "Training Finished" in (tmp_path / "log").read_text()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")

@@ -402,8 +402,12 @@ def test_bf16_step_with_remat_and_chunk_runs(bf16_inputs):
 
 
 def test_simple_joint_still_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Transducer(TransducerConfig(**dict(MODEL, simple_joint=True)))
+    """``simple_joint`` (the pruned loss's heads) no longer raises: it builds
+    the two heads, and ``simple_factors`` gives (B, T, V) and (B, U+1, V)."""
+    model = Transducer(TransducerConfig(**dict(MODEL, simple_joint=True)))
+    enc, dec = torch.zeros(2, 7, MODEL["hid_dim"]), torch.zeros(2, 4, MODEL["hid_dim"])
+    am, lm = model.simple_factors(enc, dec)
+    assert am.shape == (2, 7, MODEL["vocab_size"]) and lm.shape == (2, 4, MODEL["vocab_size"])
 
 
 # ---------------------------------------------------------------------------
