@@ -105,7 +105,18 @@ V=6268, random weights from a seed):
   flash and the exact path; and ``bench.py``'s step with
   ``tdnn_transformer_dropout=0`` -- one warm-up and 2 timed steps through
   K1-K4, then one step each with flash and exact attention from the same
-  weights and seed, which must agree.
+  weights and seed, which must agree;
+* the quality recipes (``pika_tpu_torch/recipes/``): K1-K3 held and timed
+  at their joints (V = 31, under one 64-column tile: the recipes' H 256
+  and the probe's H 128, ragged lengths); the warm-up convergence probe
+  (``recipes/probe.py``: the synthetic corpus at seed 11, the rnn encoder,
+  12 epochs of 16 batches) held to the JAX probe's gates on its epoch
+  losses, with K1-K3 launched; and ``recipes/mini_grammar.py`` end to end
+  at a cut budget (corpus, prep, CMVN, bigram LM, the two training phases,
+  the dev sweeps of FST fusion per beam and per token, MBR, LAS forward and
+  backward, the LAS sweep and every test decode), every stage on the card,
+  every RESULTS line of a known form, K1-K3 launched in training; its WERs
+  printed, not judged.
 
 Float32 throughout, with TF32 off for matmuls and cuDNN convolutions, so the
 parity checks compare float32 with float32; attention rounds q, k, v and the
@@ -175,6 +186,7 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_w,
     joint_channels_bwd_w_reference,
     joint_channels_reference,
+    joint_launches,
     chunk_bounds,
 )
 from pika_tpu_torch.ops import rnnt_loss
@@ -193,6 +205,7 @@ from pika_tpu_torch.train.checkpoint import restore_checkpoint
 import pika_tpu_torch.train.eval_transducer as eval_module
 from pika_tpu_torch.train.eval_transducer import main as eval_main
 from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
+from pika_tpu_torch.recipes import mini_grammar, probe
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
 from pika_tpu_torch.train.mbr import (
     make_mbr_step,
@@ -282,6 +295,19 @@ D256_LAYER = (8, 239, 256)
 # FST_BIGRAMS continuations), lm_scale and nonblk_reward of the decode
 FST_BIGRAMS, FST_SCALE, FST_REWARD = 40, 0.5, 0.5
 SMALL_NHID = 256  # egs/mini_*.sh's tdnn_nhid: d_head 16, 16 and 32
+# the quality recipes' joint (egs/mini_*.sh: --rnn_size 256, --output_dim 31,
+# batch 16: a 4 s waveform bucket is 398 frames, T' 89 after the TDNN; the
+# label bucket 16 makes U+1 17) and the warm-up probe's (--rnn_size 128, the
+# rnn encoder does not subsample: a 2 s bucket is 198 frames): V under one
+# 64-column tile
+RECIPE_JOINTS = (("recipe", (16, 89, 17, 256, 31)), ("probe", (16, 198, 17, 128, 31)))
+# the recipe path: egs/mini_grammar.sh at a cut budget (the corpus 64 train
+# / 16 test, dev 16, 400 text lines; 2 + 2 epochs of 4 batches; MBR and LAS
+# one epoch of 4 batches; sweeps of two scales and two LAS pairs)
+RECIPE_CUT = dict(train=64, test=16, dev=16, text=400, warmup_epochs=2, epochs=4, mbr_epochs=1,
+                  las_epochs=1)
+RECIPE_SWEEPS = dict(fst_scales="0.4,0.8", pt_scales="0.8,1.2", las_sweep="0.05:0.05,0.3:0.7")
+RECIPE_FLAGS = {"--num_batches_per_epoch": "4"}
 LONG_SECONDS, LONG_BATCH, LONG_LABELS = 60, 4, 240
 # flash against exact attention (same weights and seed), bf16 rounding in
 # both, at other points: losses to 1e-3 relative (as the CPU tests hold the
@@ -435,6 +461,13 @@ def bound(flops: float, nbytes: float, peak: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def ragged_lengths(b: int, t: int, u1: int) -> tuple[list, list]:
+    """Lengths of a padded batch: frames from t down to about t / 2, labels
+    from u1 - 1 down to 4 (the corpus' fewest)."""
+    return ([t - i * (t // 2) // (b - 1) for i in range(b)],
+            [u1 - 1 - i * (u1 - 5) // (b - 1) for i in range(b)])
+
+
 def joint_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int):
     g = torch.Generator(device).manual_seed(seed)
 
@@ -449,11 +482,12 @@ def joint_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int):
 
 def kernel_parity(device) -> dict:
     """K1 against joint_channels_reference at bf16 (and, within K1_ENVELOPE,
-    at float32) at a ragged shape and at the flagship eval shape; times K1
+    at float32) at a ragged shape, at the quality recipes' and the probe's
+    joints (V = 31) and at the flagship eval shape; times K1
     and its bf16 plain version at the eval shape, and K1 at the training
     shape (B = 32)."""
     worst = 0.0
-    for name, shape in (("ragged", (2, 37, 11, 96, 301)),
+    for name, shape in (("ragged", (2, 37, 11, 96, 301)), *RECIPE_JOINTS,
                         ("flagship", (BATCH, 239, U_MAX + 1, 1024, VOCAB))):
         args = joint_case(device, 1, *shape)
         ref = joint_channels_reference(*args, mm_dtype=torch.bfloat16)
@@ -533,12 +567,14 @@ def occupancy_case(device, seed: int, b: int, t: int, u1: int, h: int, v: int, t
 
 def backward_parity(device) -> tuple[dict, dict]:
     """K2 and K3 against joint_channels_bwd_reference at bf16 (and, within
-    ENVELOPE, at float32) at a ragged shape and at the flagship training
-    shape (bench.py's batch 32); times K2 and K3 alone, the fused backward
+    ENVELOPE, at float32) at a ragged shape, at the recipes' and the probe's
+    joints (V = 31, ragged lengths) and at the flagship training shape
+    (bench.py's batch 32); times K2 and K3 alone, the fused backward
     (both from one z) and the bf16 plain versions at the flagship shape."""
     names = ("d_ax", "d_gx", "d_ay", "d_gy", "d_w2", "d_b2")
     worst = {"K2": 0.0, "K3": 0.0}
     cases = (("ragged", (3, 37, 11, 96, 301), [37, 20, 1], [10, 4, 0]),
+             *((name, shape, *ragged_lengths(*shape[:3])) for name, shape in RECIPE_JOINTS),
              ("flagship train", (TRAIN_BATCH, 239, U_MAX + 1, 1024, VOCAB),
               [239] * TRAIN_BATCH, [U_MAX] * TRAIN_BATCH))
     for name, shape, t_len, u_len in cases:
@@ -604,6 +640,32 @@ def backward_parity(device) -> tuple[dict, dict]:
              "library_ms": None},
             {"max_abs_err": worst["K3"], "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound,
              "library_ms": None})
+
+
+def recipe_joint_times(device) -> None:
+    """K1 and the fused K2 + K3 at the recipes' and the probe's joints beside
+    their bf16 plain versions and their bounds (CUDA events)."""
+    for name, shape in RECIPE_JOINTS:
+        b, t, u1, h, v = shape
+        args = occupancy_case(device, 4, *shape, *ragged_lengths(b, t, u1))
+        fwd = args[:7]
+        k1_ms = time_ms(lambda: joint_channels(*fwd), warmup=3, iters=20)
+        k1_plain = time_ms(lambda: joint_channels_reference(*fwd, mm_dtype=torch.bfloat16),
+                           warmup=2, iters=10)
+        bwd_ms = time_ms(lambda: joint_channels_bwd(*args), warmup=3, iters=20)
+        bwd_plain = time_ms(lambda: joint_channels_bwd_reference(*args, mm_dtype=torch.bfloat16),
+                            warmup=2, iters=10)
+        rows, product = b * t * u1, 2.0 * b * t * u1 * h * v
+        read = 4 * (2 * b * t * h + 2 * b * u1 * h + v + b * u1) + 2 * h * v
+        k1_bound = bound(product, read + 4 * 3 * rows, PEAK_BF16)
+        bwd_bound = bound(3 * product, read + 4 * 4 * rows + 4 * (2 * b * t * h + 2 * b * u1 * h)
+                          + 4 * (h * v + v), PEAK_BF16)
+        say(f"{name} joint B,T,U1,H,V={shape}: K1 {k1_ms:.4f} ms (bf16 plain {k1_plain:.4f}, "
+            f"bound {k1_bound['bound_ms']:.4f}, {k1_bound['bound_by']}); K2 + K3 fused "
+            f"{bwd_ms:.4f} ms (bf16 plain {bwd_plain:.4f}, bound {bwd_bound['bound_ms']:.4f}, "
+            f"{bwd_bound['bound_by']})")
+        del args, fwd
+    torch.cuda.empty_cache()
 
 
 def flagship_batch(device, batch: int, seed: int = 0, seconds: int = SECONDS,
@@ -2604,8 +2666,7 @@ def rnn_encoder_path(device, paths: dict, work: str) -> None:
         t0 = time.perf_counter()
         loss = fn()
         wall = time.perf_counter() - t0
-        launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
-                    "K3": joint_channels_bwd_w.launches}
+        launches = joint_launches()
         say(f"rnn encoder {what} at {RNN_BATCH} x {SECONDS} s (T' = {int(t_out.max())}, "
             f"{RNN_LABELS} labels, V {VOCAB}): {wall:.3f} s, peak memory "
             f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, loss {loss:.4f}, "
@@ -2995,6 +3056,62 @@ def score_path(decoded: dict, work: str) -> None:
             + ("" if extra else " (= the decode CLI's WER line)"))
 
 
+def convergence_probe(device, work: str) -> None:
+    """The warm-up convergence probe (``recipes/probe.py``: the JAX probe's
+    corpus, model, optimizer, augmentation and 12 epochs of 16 batches) on
+    the card, held to the JAX probe's own gates; its K1-K3 launches."""
+    reset_launches()
+    out = probe.run_probe(work, str(device))
+    launches = joint_launches()
+    losses = out["losses"]
+    say(f"convergence probe: epoch losses {losses} (chance ln 31 = {math.log(31):.2f}); "
+        f"training {out['train_s']:.1f} s; launches K1 {launches['K1']}, K2 {launches['K2']}, "
+        f"K3 {launches['K3']}")
+    check(len(losses) == probe.EPOCHS, f"probe: {len(losses)} epochs")
+    missed = probe.missed_gates(losses)
+    check(not missed, f"probe: the JAX probe's gates missed: {missed}")
+    check(all(n > 0 for n in launches.values()), f"probe: K1-K3 launched {launches}")
+    say(f"convergence probe: gates {probe.GATES} (epoch, loss below): ok")
+
+
+def recipe_path(device, work: str) -> None:
+    """``recipes/mini_grammar.py`` end to end on the card at a cut budget
+    (RECIPE_CUT): every stage on the card, its last artifact written, every
+    RESULTS line of a known form (the FST and LAS lines included), K1-K3
+    launched in training; the WERs printed, not judged."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = mini_grammar.run(work, seed=1, device=str(device), flags=RECIPE_FLAGS, **RECIPE_SWEEPS,
+                           **RECIPE_CUT)
+    wall = time.perf_counter() - t0
+    launches = joint_launches()
+    c = mini_grammar.Commands(work, 1, **RECIPE_CUT)
+    check(out["ok"], "recipe: the FST scale could not be tuned")
+    for artifact in (c.lm, f"{c.data}/train/global_cmvn.stats", f"{c.dev}/test/label.txt",
+                     f"{c.exp}/model.epoch.{c.epochs[0] - 1}", c.model, c.mbr_model,
+                     *c.las_models, f"{c.exp}/las_sweep.note"):
+        check(os.path.exists(artifact), f"recipe: {artifact} written")
+    stages = [t for t in out["times"] if t.startswith("stage")]
+    check(len(stages) == 9, f"recipe: stages run {stages}")
+    lines = open(c.results).read().splitlines()
+    forms = mini_grammar.parse_results(lines)
+    wers = {m[1]: float(m[2]) for form, m in forms if form == "wer"}
+    check(not any(form == "failed" for form, _ in forms), f"recipe: a decode failed: {lines}")
+    check(len(wers) == 10 and sum(form == "pair" for form, _ in forms) == 1
+          and sum(form == "chosen" for form, _ in forms) == 2, f"recipe: RESULTS {lines}")
+    check(all(n > 0 for n in launches.values()), f"recipe: K1-K3 launched {launches}")
+    budget = ", ".join(f"{k} {v}" for k, v in {**RECIPE_CUT, **RECIPE_SWEEPS,
+                                               **RECIPE_FLAGS}.items())
+    say(f"recipe path (mini_grammar on the card; cut: {budget}): {wall:.1f} s; stages "
+        + ", ".join(f"{t.split(' (')[0]} {s:.1f} s" for t, s in out["times"].items()
+                    if t.startswith("stage"))
+        + f"; launches K1 {launches['K1']}, K2 {launches['K2']}, K3 {launches['K3']}")
+    say("recipe path WERs (printed, not judged): "
+        + ", ".join(f"{tag} {w:.2f}" for tag, w in wers.items())
+        + f"; chosen fst {out['fst_scale']}, pt {out['pt_scale']}, las {out['las_pair']}; "
+        f"losses {out['losses']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the GPU only",
@@ -3022,6 +3139,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # LM files, the CLI phases' corpus and bundles
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)
+    recipe_joint_times(device)
     k4 = k4_parity(device)
     inference_launches, exact_loss = inference_path(device)
     flash_inference_path(device, exact_loss)
@@ -3042,6 +3160,8 @@ def main() -> int:
     decoded = transformer_decoder_path(device, cli_paths, work, lstm_beam)
     score_path(decoded, work)
     pruned_path(device, cli_paths, full_step_s)
+    convergence_probe(device, os.path.join(work, "probe"))
+    recipe_path(device, os.path.join(work, "mini_grammar"))
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)

@@ -386,3 +386,10 @@ def joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_z
 
 joint_channels_bwd_in.launches = 0  # K2
 joint_channels_bwd_w.launches = 0   # K3
+
+
+def joint_launches() -> dict:
+    """K1-K3's launch counts since they were last set to 0 (each wrapper
+    counts the launches of its kernel on the card)."""
+    return {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
+            "K3": joint_channels_bwd_w.launches}
