@@ -116,11 +116,21 @@ V=6268, random weights from a seed):
   the dev sweeps of FST fusion per beam and per token, MBR, LAS forward and
   backward, the LAS sweep and every test decode), every stage on the card,
   every RESULTS line of a known form, K1-K3 launched in training; its WERs
-  printed, not judged.
+  printed, not judged; then ``recipes/las_diversity.py`` on its bundles
+  (the independent LAS pair for 2 epochs of 4 batches, the nine-pair dev
+  sweep, both test decodes; its RESULTS line forms) and the N-best oracle
+  of the recipe's decodes beside their 1-best (``recipes/nbest_oracle.py``);
+* the LSTM's fused route (one cuDNN call per layer, packed ragged batches)
+  held to its loop over frames at the independent LAS encoder's shape (16 x
+  400 x 120, 3 bidirectional layers of 256) and the probe's (16 x 198 x
+  120, 2 of 128): outputs, final states and every gradient to 1e-5
+  relative L2, both routes timed; the probe's and the rnn encoder's step
+  printed beside their times on the loop.
 
-Float32 throughout, with TF32 off for matmuls and cuDNN convolutions, so the
-parity checks compare float32 with float32; attention rounds q, k, v and the
-probabilities to bf16 on both paths, as the JAX package does.
+Float32 throughout, with TF32 off for matmuls and cuDNN (convolutions and
+the LSTM), so the parity checks compare float32 with float32; attention
+rounds q, k, v and the probabilities to bf16 on both paths, as the JAX
+package does.
 
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi reports them; a JSON line with each kernel's launches on its
@@ -168,6 +178,7 @@ from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager, gre
 from pika_tpu_torch.decode.rerank import main as rerank_main
 from pika_tpu_torch.decode.rescore import las_score_hyps
 from pika_tpu_torch.features.fbank import FbankConfig
+from pika_tpu_torch.models.lstm import LSTM
 from pika_tpu_torch.models.transducer import Transducer, TransducerConfig, init_transducer
 from pika_tpu_torch.ops import cuda_build
 from pika_tpu_torch.ops.flash_attention import (
@@ -205,7 +216,7 @@ from pika_tpu_torch.train.checkpoint import restore_checkpoint
 import pika_tpu_torch.train.eval_transducer as eval_module
 from pika_tpu_torch.train.eval_transducer import main as eval_main
 from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
-from pika_tpu_torch.recipes import mini_grammar, probe
+from pika_tpu_torch.recipes import las_diversity, mini_grammar, nbest_oracle, probe
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
 from pika_tpu_torch.train.mbr import (
     make_mbr_step,
@@ -308,6 +319,20 @@ RECIPE_CUT = dict(train=64, test=16, dev=16, text=400, warmup_epochs=2, epochs=4
                   las_epochs=1)
 RECIPE_SWEEPS = dict(fst_scales="0.4,0.8", pt_scales="0.8,1.2", las_sweep="0.05:0.05,0.3:0.7")
 RECIPE_FLAGS = {"--num_batches_per_epoch": "4"}
+# egs/las_diversity.sh after the cut recipe: the independent LAS pair for 2
+# epochs of 4 batches each, the script's nine-pair dev sweep
+LAS_IND_EPOCHS = 2
+# the LSTM's fused route (cuDNN) against its loop over frames: (name, batch,
+# frames, input width, output width, bidirectional layers) of the independent
+# LAS encoder (egs/las_diversity.sh: 4 s of 40 x 3 spliced fbank frames) and
+# of the probe's rnn encoder (2 s buckets); ragged lengths from the full
+# length down to 1, in shuffled order
+LSTM_SHAPES = (("LAS encoder", 16, 400, 120, 256, 3), ("probe encoder", 16, 198, 120, 128, 2))
+LSTM_RTOL = 1e-5  # relative L2, float32 on both routes (TF32 off)
+# the records these phases print beside: their steps on the LSTM's loop over
+# frames (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+PROBE_STEP_S_BEFORE = "0.36-0.39 s"
+RNN_STEP_S_BEFORE = "4.528-4.955 s"
 LONG_SECONDS, LONG_BATCH, LONG_LABELS = 60, 4, 240
 # flash against exact attention (same weights and seed), bf16 rounding in
 # both, at other points: losses to 1e-3 relative (as the CPU tests hold the
@@ -2668,7 +2693,9 @@ def rnn_encoder_path(device, paths: dict, work: str) -> None:
         wall = time.perf_counter() - t0
         launches = joint_launches()
         say(f"rnn encoder {what} at {RNN_BATCH} x {SECONDS} s (T' = {int(t_out.max())}, "
-            f"{RNN_LABELS} labels, V {VOCAB}): {wall:.3f} s, peak memory "
+            f"{RNN_LABELS} labels, V {VOCAB}): {wall:.3f} s"
+            + (f" (before the fused LSTM route: {RNN_STEP_S_BEFORE})" if what == "train step"
+               else "") + ", peak memory "
             f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, loss {loss:.4f}, "
             f"launches {launches}")
         check(math.isfinite(loss), f"rnn encoder {what}: finite loss")
@@ -3064,9 +3091,12 @@ def convergence_probe(device, work: str) -> None:
     out = probe.run_probe(work, str(device))
     launches = joint_launches()
     losses = out["losses"]
+    argv = probe.commands(work)["train"]
+    steps = probe.EPOCHS * int(argv[argv.index("--num_batches_per_epoch") + 1])
     say(f"convergence probe: epoch losses {losses} (chance ln 31 = {math.log(31):.2f}); "
-        f"training {out['train_s']:.1f} s; launches K1 {launches['K1']}, K2 {launches['K2']}, "
-        f"K3 {launches['K3']}")
+        f"training {out['train_s']:.1f} s, {out['train_s'] / steps:.3f} s a step over {steps} "
+        f"(before the fused LSTM route: {PROBE_STEP_S_BEFORE}); launches K1 {launches['K1']}, "
+        f"K2 {launches['K2']}, K3 {launches['K3']}")
     check(len(losses) == probe.EPOCHS, f"probe: {len(losses)} epochs")
     missed = probe.missed_gates(losses)
     check(not missed, f"probe: the JAX probe's gates missed: {missed}")
@@ -3112,6 +3142,86 @@ def recipe_path(device, work: str) -> None:
         f"losses {out['losses']}")
 
 
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def lstm_route_path(device) -> None:
+    """The LSTM's fused route (one cuDNN call per layer, packed ragged
+    batches) against its loop over frames at LSTM_SHAPES: outputs, final
+    states and the gradients of the input and of every parameter from one
+    backward of fixed cotangents; both routes' forward + backward timed by
+    CUDA events."""
+    for name, b, t, d, h, layers in LSTM_SHAPES:
+        gen = torch.Generator().manual_seed(t)
+        mod = LSTM(d, h, layers, bidirectional=True, device=device)
+        with torch.no_grad():  # torch's LSTM initialisation, U(-1/sqrt(H), 1/sqrt(H))
+            for p in mod.parameters():
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(h // 2))
+        x = torch.randn(b, t, d, generator=gen).to(device)
+        lengths = torch.linspace(t, 1, b).round().long()[torch.randperm(b, generator=gen)]
+        out_cot = torch.randn(b, t, h, generator=gen).to(device)
+        state_cot = [torch.randn(layers * 2, b, h // 2, generator=gen).to(device)
+                     for _ in range(2)]
+
+        def run(route):
+            mod.zero_grad()
+            xr = x.clone().requires_grad_()
+            out, (hh, cc) = getattr(mod, route)(xr, None, lengths.to(device))
+            ((out * out_cot).sum() + (hh * state_cot[0]).sum()
+             + (cc * state_cot[1]).sum()).backward()
+            return {"out": out.detach(), "h": hh.detach(), "c": cc.detach(), "dx": xr.grad,
+                    **{f"d{k}": p.grad.clone() for k, p in mod.named_parameters()}}
+
+        fused, loop = run("forward_fused"), run("forward_loop")
+        errs = {k: rel_l2(fused[k], loop[k]) for k in loop}
+        worst = max(errs, key=errs.get)
+        fused_ms = time_ms(lambda: run("forward_fused"), 2, 5)
+        loop_ms = time_ms(lambda: run("forward_loop"), 1, 2)
+        say(f"LSTM route, {name} ({b} x {t} x {d}, {layers} bidirectional layers of {h}, "
+            f"lengths {int(lengths.min())}-{int(lengths.max())}): fused (cuDNN) forward + "
+            f"backward {fused_ms:.3f} ms, the loop {loop_ms:.3f} ms ({loop_ms / fused_ms:.1f}x); "
+            f"{len(errs)} tensors within {errs[worst]:.2e} rel L2 (worst {worst})")
+        check(all(e <= LSTM_RTOL for e in errs.values()),
+              f"LSTM route {name}: fused against the loop {errs}")
+        check(not fused["out"][lengths.argmin(), 1:].any(), f"LSTM route {name}: 0 past a length")
+
+
+def las_diversity_path(device, work: str) -> None:
+    """``recipes/las_diversity.py`` on the cut recipe's bundles
+    (LAS_IND_EPOCHS of 4 batches a direction, the script's nine-pair sweep):
+    its artifacts and its RESULTS line forms; then the N-best oracle of the
+    recipe's decodes beside their 1-best."""
+    t0 = time.perf_counter()
+    out = las_diversity.run(work, seed=1, device=str(device), flags=RECIPE_FLAGS,
+                            las_ind_epochs=LAS_IND_EPOCHS, **RECIPE_CUT)
+    wall = time.perf_counter() - t0
+    c = las_diversity.Commands(work, 1, las_ind_epochs=LAS_IND_EPOCHS, **RECIPE_CUT)
+    check(out["ok"], "las_diversity: failed")
+    for artifact in (*c.las_ind_models, f"{c.exp}/las_ind_sweep.note"):
+        check(os.path.exists(artifact), f"las_diversity: {artifact} written")
+    lines = open(c.results).read().splitlines()
+    kinds = [next((k for k, rx in las_diversity.RESULT_FORMS.items() if rx.match(line)), None)
+             for line in lines]
+    check(kinds == ["sweep"] * 9 + ["pair", "wer", "wer"],
+          f"las_diversity: RESULTS.las_ind.seed1 forms {lines}")
+    steps = LAS_IND_EPOCHS * int(RECIPE_FLAGS["--num_batches_per_epoch"])
+    say(f"las_diversity (independent LAS, {LAS_IND_EPOCHS} epochs of "
+        f"{RECIPE_FLAGS['--num_batches_per_epoch']} batches a direction): {wall:.1f} s; "
+        + ", ".join(f"{t.split(' (')[0]} {v:.1f} s ({v / steps:.3f} s a step)"
+                    for t, v in out["times"].items() if t.startswith("stage"))
+        + "; " + " | ".join(lines[-3:]) + " (printed, not judged)")
+    g = mini_grammar.Commands(work, 1, **RECIPE_CUT)
+    for nbest, symbols in (("nbest_base.txt", False), ("nbest_fst.txt", True),
+                           ("nbest_fst_pt.txt", True), ("nbest_mbr_fst_pt_las_ind.txt", True)):
+        first, best = nbest_oracle.oracle(f"{g.exp}/{nbest}", f"ark:{g.data}/test/label.txt",
+                                          f"{g.data}/test/wav.scp", 4,
+                                          g.char if symbols else None)
+        check(best[1]["errors"] <= first[1]["errors"], f"oracle of {nbest}: above the 1-best")
+        say(f"N-best oracle, {nbest}: {nbest_oracle.oracle_line(4, first, best)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the GPU only",
@@ -3140,6 +3250,7 @@ def main() -> int:
     k1 = kernel_parity(device)
     k2, k3 = backward_parity(device)
     recipe_joint_times(device)
+    lstm_route_path(device)
     k4 = k4_parity(device)
     inference_launches, exact_loss = inference_path(device)
     flash_inference_path(device, exact_loss)
@@ -3162,6 +3273,7 @@ def main() -> int:
     pruned_path(device, cli_paths, full_step_s)
     convergence_probe(device, os.path.join(work, "probe"))
     recipe_path(device, os.path.join(work, "mini_grammar"))
+    las_diversity_path(device, os.path.join(work, "mini_grammar"))
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import contextlib
 import datetime
-import socket
+import os
+import tempfile
 from typing import Iterable, Optional
 
 import numpy as np
@@ -25,11 +26,13 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(minutes=10)
 
 
-def free_port() -> int:
-    """A TCP port on localhost that is free now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def local_rendezvous():
+    """The ``init_method`` of ranks spawned on this host: a ``file://`` store
+    in a fresh temporary directory, removed on exit.  No port is probed and
+    released, so no other process can take it before rank 0 binds it."""
+    with tempfile.TemporaryDirectory(prefix="pika-rendezvous-") as tmp:
+        yield "file://" + os.path.join(tmp, "store")
 
 
 @contextlib.contextmanager
@@ -37,7 +40,8 @@ def process_group(device: torch.device, rank: int = 0, world_size: int = 1,
                   init_method: Optional[str] = None):
     """The default process group for the body of the ``with``: NCCL on a
     CUDA ``device``, gloo on the CPU.  ``init_method`` is ``tcp://host:port``
-    (rank 0 listens there); a world of one needs none (an in-memory store).
+    (rank 0 listens there) or ``file://path`` (``local_rendezvous``); a
+    world of one needs none (an in-memory store).
     Destroyed on exit."""
     device = torch.device(device)
     kw = {"device_id": device} if device.type == "cuda" else {}

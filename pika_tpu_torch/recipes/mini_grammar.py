@@ -308,14 +308,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="egs/mini_grammar.sh on the port")
     ap.add_argument("work", nargs="?", default="recipe_work/mini_grammar")
     ap.add_argument("--seed", type=int, default=1, help="the training seed (SEED)")
-    ap.add_argument("--device", type=str, default=None,
-                    help="torch device of every stage (default: the CUDA card)")
     ap.add_argument("--fst_scale", type=str, default=None,
                     help="reuse a dev-tuned per-beam fst_lm_scale (FST_SCALE)")
     ap.add_argument("--pt_scale", type=str, default=None,
                     help="reuse a dev-tuned per-token fst_lm_scale (PT_SCALE)")
     ap.add_argument("--las_pair", type=str, default=None,
                     help="reuse a dev-tuned FW:BW LAS scale pair (LAS_PAIR)")
+    add_budget_args(ap)
+    add_sweep_args(ap)
+    return ap
+
+
+BUDGET = ("train", "test", "dev", "text", "warmup_epochs", "epochs", "mbr_epochs", "las_epochs")
+SWEEPS = ("fst_scales", "pt_scales", "las_sweep")
+
+
+def add_budget_args(ap: argparse.ArgumentParser) -> None:
+    """The device, the overrides that shrink the recipe and ``--set``
+    (shared by the recipes built on it)."""
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device of every stage (default: the CUDA card)")
     ap.add_argument("--train", type=int, default=TRAIN)
     ap.add_argument("--test", type=int, default=TEST)
     ap.add_argument("--dev", type=int, default=DEV)
@@ -324,21 +336,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=EPOCHS)
     ap.add_argument("--mbr_epochs", type=int, default=MBR_EPOCHS)
     ap.add_argument("--las_epochs", type=int, default=LAS_EPOCHS)
-    ap.add_argument("--fst_scales", type=str, default=FST_SCALES)
-    ap.add_argument("--pt_scales", type=str, default=PT_SCALES)
-    ap.add_argument("--las_sweep", type=str, default=LAS_SWEEP)
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
                     help="replace --NAME's value in every CLI that takes it")
-    return ap
+
+
+def add_sweep_args(ap: argparse.ArgumentParser, fst_scales: str = FST_SCALES,
+                   pt_scales: str = PT_SCALES, las_sweep: str = LAS_SWEEP) -> None:
+    """The dev sweeps' scale lists."""
+    ap.add_argument("--fst_scales", type=str, default=fst_scales)
+    ap.add_argument("--pt_scales", type=str, default=pt_scales)
+    ap.add_argument("--las_sweep", type=str, default=las_sweep)
+
+
+def run_kwargs(args) -> dict:
+    """``run``'s keyword arguments from the flags of ``add_budget_args`` and,
+    where the parser has them, ``add_sweep_args``."""
+    given = vars(args)
+    return dict(device=args.device, flags=parse_sets(args.set),
+                **{k: given[k] for k in (*BUDGET, *SWEEPS) if k in given})
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    out = run(args.work, args.seed, args.device, parse_sets(args.set), args.fst_scale,
-              args.pt_scale, args.las_pair, args.fst_scales, args.pt_scales, args.las_sweep,
-              train=args.train, test=args.test, dev=args.dev,
-              text=args.text, warmup_epochs=args.warmup_epochs, epochs=args.epochs,
-              mbr_epochs=args.mbr_epochs, las_epochs=args.las_epochs)
+    out = run(args.work, args.seed, fst_scale=args.fst_scale, pt_scale=args.pt_scale,
+              las_pair=args.las_pair, **run_kwargs(args))
     print(summary(out), flush=True)
     return out["ok"]
 

@@ -3,12 +3,12 @@
 #
 #   bash pika_tpu_torch/recipes/run_logged.sh OUT RECIPE [recipe args...]
 #
-# from the root of a checkout, RECIPE being mini_synthetic or mini_grammar
-# (work directory recipe_work/RECIPE).  Writes OUT/card.txt (the card's
+# from the root of a checkout, RECIPE being mini_synthetic, mini_grammar or
+# grammar_seeds (work directory recipe_work/RECIPE).  Writes OUT/card.txt (the card's
 # name and power limit), OUT/smi.txt (nvidia-smi's SM clock, power draw and
-# utilization every 30 s), OUT/stdout.txt (the recipe's output, its last
-# line the summary JSON) and copies the work directory's logs, decode
-# outputs, RESULTS and LM to OUT.
+# utilization every 30 s), OUT/stdout.txt (the recipe's output; the
+# recipes' last line is their summary JSON) and copies the work directory's logs, decode
+# outputs and N-best files, RESULTS, notes and LM to OUT.
 set -o pipefail
 out=$(realpath -m "$1"); recipe=$2; shift 2
 work=recipe_work/$recipe
@@ -23,9 +23,10 @@ smi=$!
 python -m "pika_tpu_torch.recipes.$recipe" "$work" "$@" 2>&1 | tee "$out/stdout.txt" \
     | grep -v "dropped .* tail utterances"
 rc=$?
-kill $smi
+pkill -P $smi; kill $smi  # the sampler and its sleep
 cd "$work" && find . -name "*.log" -o -name "*.out" -o -name "*.out.failed" -o -name "RESULTS*" \
-    -o -name "las_sweep.note" -o -name "lm.arpa" | while read -r f; do
+    -o -name "*.note" -o -name "lm.arpa" -o -name "nbest*.txt" \
+    | while read -r f; do
     mkdir -p "$out/$(dirname "$f")" && cp "$f" "$out/$f"
 done
 exit $rc

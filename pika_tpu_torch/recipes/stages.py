@@ -169,12 +169,17 @@ class Recipe:
             return None
         return WER_VALUE.match(line).group(1)
 
-    def wer_of(self, tag: str, argv: list, out: str) -> Optional[float]:
+    def wer_of(self, tag: str, argv: list, out: str,
+               record_failure: bool = True) -> Optional[float]:
         """``wer_of TAG CMD``: decode (or reuse a finished decode's output)
         and append ``TAG %WER ...`` to RESULTS; a decode that fails is
-        recorded as failed, never as a WER."""
+        recorded as failed (or, without ``record_failure``, only printed, as
+        the experiment scripts' ``wer_of`` adds no line), never as a WER."""
         if self.decoded_wer(argv, out) is None:
-            self.result(f"{tag} decode failed; skipping")
+            if record_failure:
+                self.result(f"{tag} decode failed; skipping")
+            else:
+                self.say(f"{tag} decode failed")
             return None
         line = self.wer_line(out)
         self.result(f"{tag} {line}")

@@ -9,6 +9,7 @@ auto`` (``resolve_rng_impl``)."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Callable, Iterable, Optional
 
@@ -18,7 +19,7 @@ from pika_tpu_torch.data.cmvn import CmvnStats, offset_scale
 from pika_tpu_torch.data.loader import OtfLoaderConfig
 from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.features.fbank import FbankConfig
-from pika_tpu_torch.parallel.mesh import free_port, process_group, rank, world_size
+from pika_tpu_torch.parallel.mesh import local_rendezvous, process_group, rank, world_size
 from pika_tpu_torch.train.lr import make_optimizer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_feats_featurizer
 
@@ -216,8 +217,10 @@ def launch(args, worker: Callable) -> None:
     gloo on the CPU; the device decides.  One rank runs in this process,
     more in worker processes started with ``spawn``, each on
     ``cuda:local_rank`` (or the CPU); a worker that fails makes this
-    process fail too.  Sync training on one rank needs no process group and
-    gets none; BMUF's collective runs in a world of one too."""
+    process fail too.  Ranks spawned here meet at ``local_rendezvous``'s
+    file store unless ``--coordinator_address`` names a TCP one.  Sync
+    training on one rank needs no process group and gets none; BMUF's
+    collective runs in a world of one too."""
     device, world, local, first = plan_launch(args)
     init = f"tcp://{args.coordinator_address}" if args.coordinator_address else None
     if local == 1:
@@ -229,14 +232,16 @@ def launch(args, worker: Callable) -> None:
         with process_group(device, first, world, init):
             worker(args, device)
         return
-    init = init or f"tcp://127.0.0.1:{free_port()}"
-    try:
-        torch.multiprocessing.start_processes(
-            _run_rank, args=(args, worker, device.type, world, first, init,
-                             torch.get_num_threads()),
-            nprocs=local, join=True, start_method="spawn")
-    except torch.multiprocessing.ProcessExitedException as exc:
-        raise SystemExit(exc.exit_code or 1) from exc
+    with contextlib.ExitStack() as stack:
+        if init is None:
+            init = stack.enter_context(local_rendezvous())
+        try:
+            torch.multiprocessing.start_processes(
+                _run_rank, args=(args, worker, device.type, world, first, init,
+                                 torch.get_num_threads()),
+                nprocs=local, join=True, start_method="spawn")
+        except torch.multiprocessing.ProcessExitedException as exc:
+            raise SystemExit(exc.exit_code or 1) from exc
 
 
 def _run_rank(local_rank: int, args, worker: Callable, device_type: str, world: int,

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
-from pika_tpu_torch.parallel.mesh import free_port
+from pika_tpu_torch.parallel.mesh import local_rendezvous
 from pika_tpu_torch.train.lr import make_optimizer
 
 torch.set_num_threads(1)
@@ -125,9 +125,9 @@ def _worker(local_rank: int, init: str, out_dir: str) -> None:
 def port(tmp_path_factory):
     """Both ranks' results of every case from one spawn of two workers."""
     out = tmp_path_factory.mktemp("bmuf")
-    torch.multiprocessing.start_processes(
-        _worker, args=(f"tcp://127.0.0.1:{free_port()}", str(out)), nprocs=WORLD,
-        join=True, start_method="spawn")
+    with local_rendezvous() as init:
+        torch.multiprocessing.start_processes(
+            _worker, args=(init, str(out)), nprocs=WORLD, join=True, start_method="spawn")
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

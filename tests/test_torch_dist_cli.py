@@ -38,7 +38,7 @@ import pika_tpu_torch.models.transformer as transformer_pt
 from pika_tpu_torch.convert import state_dict_from_flax
 from pika_tpu_torch.data.kaldi_ark import write_matrix_ark
 from pika_tpu_torch.data.scp import write_int_vectors
-from pika_tpu_torch.parallel.mesh import free_port
+from pika_tpu_torch.parallel.mesh import local_rendezvous
 from pika_tpu_torch.train import common
 from pika_tpu_torch.train.bundle import bundle_from_flax, load_bundle
 from pika_tpu_torch.train.train_transducer import build_parser, main as train_main, run
@@ -140,9 +140,9 @@ def _check_against_jax(d, tag: str, *extra, f32: bool = False) -> None:
     train_main_jax(_argv(d, f"{tag}_jax", *extra, init="jax_init"))
     argv = _argv(d, f"{tag}_pt", *extra, "--device", "cpu")
     if f32:
-        torch.multiprocessing.start_processes(
-            _f32_rank, args=(argv, f"tcp://127.0.0.1:{free_port()}"), nprocs=2, join=True,
-            start_method="spawn")
+        with local_rendezvous() as init:
+            torch.multiprocessing.start_processes(
+                _f32_rank, args=(argv, init), nprocs=2, join=True, start_method="spawn")
     else:
         train_main(argv)
     ref_log = (d / f"{tag}_jax.0.log").read_text()

@@ -16,13 +16,13 @@ corpus of ``tests/test_torch_dist_cli.py`` with the rnn encoder and
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from pika_tpu_torch.parallel.mesh import free_port
 from pika_tpu_torch.train.bundle import load_bundle
 from pika_tpu_torch.train.checkpoint import restore_checkpoint
 from pika_tpu_torch.train.train_transducer import main as train_main
@@ -41,15 +41,22 @@ def _params(bundle) -> dict:
 def test_two_process_form_equals_one_command(rnn_corpus, tmp_path):
     d = rnn_corpus
     train_main(_argv(d, "one", *BMUF, "--device", "cpu"))
-    port = free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "pika_tpu_torch.train.train_transducer",
-         *_argv(d, "two", *BMUF, "--device", "cpu", "--coordinator_address",
-                f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i))],
-        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for i in (0, 1)]
-    outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    # the multi-host form names its TCP port, so the test probes one; a port
+    # taken between the probe and rank 0's bind is probed again
+    for _ in range(3):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "pika_tpu_torch.train.train_transducer",
+             *_argv(d, "two", *BMUF, "--device", "cpu", "--coordinator_address",
+                    f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i))],
+            env=env, cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for i in (0, 1)]
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+        if not any("EADDRINUSE" in out or "address already in use" in out for out in outs):
+            break
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
     one, two = _params(d / "one" / "model.epoch.0"), _params(d / "two" / "model.epoch.0")

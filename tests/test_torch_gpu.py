@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
-and the decode loops' CUDA graphs against their eager loops.
+the decode loops' CUDA graphs against their eager loops, and the LSTM's
+fused route (cuDNN) against its loop over frames.
 
 Needs a CUDA card and nvcc; skips without a card.  This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -17,6 +18,7 @@ import torch
 from pika_tpu_torch.decode.beam import BeamConfig, beam_search, beam_search_eager
 from pika_tpu_torch.decode.fst import _build_tables, fst_advance_sets, init_state_sets
 from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager
+from pika_tpu_torch.models.lstm import LSTM
 from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.models.transformer import MultiHeadedAttention
 from pika_tpu_torch.ops.flash_attention import (
@@ -1055,3 +1057,85 @@ def test_prune_ranges_on_card_equals_cpu(cuda_device, s_range):
     mass_ref = _band_mass(blank_lp, emit_lp, t_len, u_len, cpu, s_range)
     assert ((mass - mass_ref).abs()[differ] <= 1e-5 * mass_ref.abs().clamp(min=1.0)[differ]).all()
     assert int(differ.sum()) < b // 2
+
+
+# ---------------------------------------------------------------------------
+# The LSTM's fused route (cuDNN) against its loop over frames
+# ---------------------------------------------------------------------------
+
+def _lstm_run(mod, route, x, lengths, cots, generator=None, initial_state=None):
+    mod.zero_grad()
+    xr = x.clone().requires_grad_()
+    out, (h, c) = getattr(mod, route)(xr, generator, lengths, initial_state)
+    sum((v * w).sum() for v, w in zip((out, h, c), cots)).backward()
+    return {"out": out.detach(), "h": h.detach(), "c": c.detach(), "dx": xr.grad,
+            **{f"d{k}": p.grad.clone() for k, p in mod.named_parameters()}}
+
+
+def _lstm_case(device, b, t, d, h, layers, lengths, dropout=0.0):
+    g = torch.Generator().manual_seed(b * t + layers)
+    mod = LSTM(d, h, layers, dropout=dropout, bidirectional=True, device=device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) / (h // 2) ** 0.5)
+    x = torch.randn(b, t, d, generator=g).to(device)
+    cots = [torch.randn(b, t, h, generator=g).to(device),
+            *[torch.randn(layers * 2, b, h // 2, generator=g).to(device) for _ in range(2)]]
+    return mod, x, torch.tensor(lengths, device=device), cots
+
+
+def _rel_l2(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_lstm_fused_route_equals_the_loop(cuda_device, train):
+    """Masked, bidirectional, ragged (full, 1 and lengths between, unsorted):
+    outputs, final states and every gradient to 1e-5 relative L2 at float32;
+    in train mode dropout between the layers draws the same masks from the
+    same generator."""
+    torch.backends.cudnn.allow_tf32 = False
+    mod, x, lengths, cots = _lstm_case(cuda_device, 6, 50, 24, 32, 3,
+                                       [50, 1, 37, 12, 50, 29], dropout=0.3)
+    mod.train(train)
+    runs = [_lstm_run(mod, route, x, lengths, cots,
+                      torch.Generator(cuda_device).manual_seed(2) if train else None)
+            for route in ("forward", "forward_loop")]
+    for k in runs[1]:
+        assert _rel_l2(runs[0][k], runs[1][k]) <= 1e-5, k
+    assert not runs[0]["out"][1, 1:].any() and not runs[0]["out"][3, 12:].any()
+
+
+def test_lstm_fused_route_keeps_an_empty_row_as_the_loop_does(cuda_device):
+    """A length of 0 (which a packed sequence cannot hold): zero outputs, the
+    initial state as the final state, and the loop's gradients."""
+    torch.backends.cudnn.allow_tf32 = False
+    mod, x, lengths, cots = _lstm_case(cuda_device, 3, 9, 5, 8, 2, [9, 0, 4])
+    g = torch.Generator().manual_seed(5)
+    state = tuple(torch.randn(4, 3, 4, generator=g).to(cuda_device) for _ in range(2))
+    fused, loop = (_lstm_run(mod, route, x, lengths, cots, initial_state=state)
+                   for route in ("forward", "forward_loop"))
+    assert not fused["out"][1].any()
+    assert torch.equal(fused["h"][:, 1], state[0][:, 1])
+    assert torch.equal(fused["c"][:, 1], state[1][:, 1])
+    for k in loop:
+        assert _rel_l2(fused[k], loop[k]) <= 1e-5, k
+
+
+def test_lstm_fused_route_takes_the_matmuls_precision(cuda_device):
+    """cuDNN's own TF32 flag left on (PyTorch's default) and the matmuls'
+    off: the fused route still runs its products, forward and backward, in
+    float32 and meets the loop to 1e-5 relative L2 at a width where TF32
+    would miss it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        mod, x, lengths, cots = _lstm_case(cuda_device, 8, 120, 120, 512, 2,
+                                           [120, 1, 77, 120, 30, 64, 119, 5])
+        fused, loop = (_lstm_run(mod, route, x, lengths, cots)
+                       for route in ("forward", "forward_loop"))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for k in loop:
+        assert _rel_l2(fused[k], loop[k]) <= 1e-5, k
