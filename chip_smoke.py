@@ -120,6 +120,14 @@ V=6268, random weights from a seed):
   (the independent LAS pair for 2 epochs of 4 batches, the nine-pair dev
   sweep, both test decodes; its RESULTS line forms) and the N-best oracle
   of the recipe's decodes beside their 1-best (``recipes/nbest_oracle.py``);
+  then the pruned objective's grammar envelope in the same work directory
+  (``recipes/pruned_grammar.py`` at 2 + 2 epochs of 4 batches,
+  ``pruned_retune.py`` with one scale a sweep, ``pruned_finetune.py`` for 1
+  epoch with its ``--sm_scale 0.5`` probe, ``exact_fusion_redecodes.py
+  --seeds 1``): every RESULTS line of its recipe's form, the fine-tune's
+  first epoch loss finite, K1-K3 launched in the fine-tune and not in the
+  pruned training (its steps bypass them; no validation set); the stage
+  seconds printed, the WERs printed, not judged;
 * the LSTM's fused route (one cuDNN call per layer, packed ragged batches)
   held to its loop over frames at the independent LAS encoder's shape (16 x
   400 x 120, 3 bidirectional layers of 256) and the probe's (16 x 198 x
@@ -216,7 +224,16 @@ from pika_tpu_torch.train.checkpoint import restore_checkpoint
 import pika_tpu_torch.train.eval_transducer as eval_module
 from pika_tpu_torch.train.eval_transducer import main as eval_main
 from pika_tpu_torch.parallel import BMUF, BMUFConfig, process_group
-from pika_tpu_torch.recipes import las_diversity, mini_grammar, nbest_oracle, probe
+from pika_tpu_torch.recipes import (
+    exact_fusion_redecodes,
+    las_diversity,
+    mini_grammar,
+    nbest_oracle,
+    probe,
+    pruned_finetune,
+    pruned_grammar,
+    pruned_retune,
+)
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
 from pika_tpu_torch.train.mbr import (
     make_mbr_step,
@@ -322,6 +339,11 @@ RECIPE_FLAGS = {"--num_batches_per_epoch": "4"}
 # egs/las_diversity.sh after the cut recipe: the independent LAS pair for 2
 # epochs of 4 batches each, the script's nine-pair dev sweep
 LAS_IND_EPOCHS = 2
+# tools/r5_pruned_*.sh after the cut recipe: the pruned training at its cut
+# (2 + 2 epochs of 4 batches), one scale in each retune sweep, a 1-epoch
+# full-loss fine-tune
+PRUNED_SWEEPS = dict(fst_scales="0.8", pt_scales="1.2")
+PRUNED_FT_EPOCHS = 1
 # the LSTM's fused route (cuDNN) against its loop over frames: (name, batch,
 # frames, input width, output width, bidirectional layers) of the independent
 # LAS encoder (egs/las_diversity.sh: 4 s of 40 x 3 spliced fbank frames) and
@@ -3222,6 +3244,65 @@ def las_diversity_path(device, work: str) -> None:
         say(f"N-best oracle, {nbest}: {nbest_oracle.oracle_line(4, first, best)}")
 
 
+def pruned_grammar_path(device, work: str) -> None:
+    """The pruned objective's grammar recipes on the cut recipe's corpus and
+    LM: ``pruned_grammar`` (the pruned training: no K1-K3 launch),
+    ``pruned_retune`` (PRUNED_SWEEPS), ``pruned_finetune`` (PRUNED_FT_EPOCHS,
+    through K1-K3, with the ``--sm_scale`` probe) and
+    ``exact_fusion_redecodes --seeds 1`` on the recipe's bundles: each
+    RESULTS line of its recipe's form, in its script's order; the stage
+    seconds and the launches printed; the WERs printed, not judged."""
+    run = dict(seed=1, device=str(device), flags=RECIPE_FLAGS, **RECIPE_CUT)
+    launches, outs, walls = {}, {}, {}
+    for name, fn in (("pruned_grammar", lambda: pruned_grammar.run(work, **run)),
+                     ("pruned_retune", lambda: pruned_retune.run(work, **PRUNED_SWEEPS, **run)),
+                     ("pruned_finetune", lambda: pruned_finetune.run(
+                         work, ft_epochs=PRUNED_FT_EPOCHS, **run)),
+                     ("exact_fusion_redecodes", lambda: exact_fusion_redecodes.run(
+                         work, "1", **{k: v for k, v in run.items() if k != "seed"}))):
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = joint_launches()
+    check(outs["pruned_grammar"]["ok"] and outs["pruned_finetune"]["ok"],
+          "pruned envelope: a recipe found no input")
+    pruned = pruned_grammar.Commands(work, 1, **RECIPE_CUT)
+    ft = pruned_finetune.Commands(work, 1, PRUNED_FT_EPOCHS, **RECIPE_CUT)
+    for artifact in (f"{pruned.exp}/model.epoch.{pruned.epochs[0] - 1}", pruned.model,
+                     ft.model):
+        check(os.path.exists(artifact), f"pruned envelope: {artifact} written")
+    kinds = {path: [k for k, _ in pruned_grammar.parse_results(open(path).read().splitlines())]
+             for path in (pruned.results, ft.results, f"{work}/RESULTS.exact_fusion")}
+    check(kinds[pruned.results] == ["wer"] * 4 + ["sweep", "chosen", "sweep", "chosen", "wer",
+                                                  "wer"],
+          f"pruned envelope: {pruned.results} forms {kinds[pruned.results]}")
+    check(kinds[ft.results] == ["wer"] * 3 + ["heading", "oracle", "wer", "wer"],
+          f"pruned envelope: {ft.results} forms {kinds[ft.results]}")
+    exact = open(f"{work}/RESULTS.exact_fusion").read().splitlines()
+    check(len(exact) == 2 and all("%WER" in line for line in exact),
+          f"pruned envelope: RESULTS.exact_fusion {exact}")
+    losses = outs["pruned_finetune"]["losses"]
+    check(bool(losses) and math.isfinite(losses[0]),
+          f"pruned envelope: the fine-tune's epoch losses {losses}")
+    check(all(n > 0 for n in launches["pruned_finetune"].values()),
+          f"pruned envelope: K1-K3 launched in the fine-tune {launches['pruned_finetune']}")
+    # the pruned steps bypass K1-K3, and the recipe trains without a validation set
+    check(not any(launches["pruned_grammar"].values()),
+          f"pruned envelope: the pruned training launched {launches['pruned_grammar']}")
+    for name, out in outs.items():
+        stages = {t: v for t, v in out["times"].items() if not t.startswith("decode")}
+        decodes = [v for t, v in out["times"].items() if t.startswith("decode")]
+        say(f"{name} (cut: {RECIPE_FLAGS['--num_batches_per_epoch']} batches an epoch): "
+            f"{walls[name]:.1f} s; "
+            + "".join(f"{t} {v:.1f} s; " for t, v in stages.items())
+            + f"{len(decodes)} decodes {sum(decodes):.1f} s; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches[name].items())
+            + "; WERs (printed, not judged) "
+            + ", ".join(f"{t} {w}" for t, w in out["wer"].items()))
+    say(f"pruned_finetune: epoch losses {losses}; {open(ft.results).read().splitlines()[4]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the GPU only",
@@ -3274,6 +3355,7 @@ def main() -> int:
     convergence_probe(device, os.path.join(work, "probe"))
     recipe_path(device, os.path.join(work, "mini_grammar"))
     las_diversity_path(device, os.path.join(work, "mini_grammar"))
+    pruned_grammar_path(device, os.path.join(work, "mini_grammar"))
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)

@@ -65,15 +65,16 @@ RESULT_FORMS = {
 }
 
 
-def parse_results(lines) -> list:
-    """Each RESULTS line's form (a key of ``RESULT_FORMS``) and match;
-    raises ``ValueError`` on a line of no form."""
+def parse_results(lines, forms=None) -> list:
+    """Each RESULTS line's form (a key of ``forms``, by default
+    ``RESULT_FORMS``) and match; raises ``ValueError`` on a line of no form."""
+    forms = RESULT_FORMS if forms is None else forms
     out = []
     for line in lines:
-        form = next((k for k, rx in RESULT_FORMS.items() if rx.match(line)), None)
+        form = next((k for k, rx in forms.items() if rx.match(line)), None)
         if form is None:
             raise ValueError(f"RESULTS line of no known form: {line!r}")
-        out.append((form, RESULT_FORMS[form].match(line)))
+        out.append((form, forms[form].match(line)))
     return out
 
 

@@ -3,15 +3,17 @@
 #
 #   bash pika_tpu_torch/recipes/run_logged.sh OUT RECIPE [recipe args...]
 #
-# from the root of a checkout, RECIPE being mini_synthetic, mini_grammar or
-# grammar_seeds (work directory recipe_work/RECIPE).  Writes OUT/card.txt (the card's
+# from the root of a checkout, RECIPE being one of the recipes' modules (work
+# directory recipe_work/RECIPE, or $WORK: the pruned recipes and the exact
+# re-decodes share mini_grammar's, WORK=recipe_work/mini_grammar).  Writes
+# OUT/card.txt (the card's
 # name and power limit), OUT/smi.txt (nvidia-smi's SM clock, power draw and
 # utilization every 30 s), OUT/stdout.txt (the recipe's output; the
 # recipes' last line is their summary JSON) and copies the work directory's logs, decode
 # outputs and N-best files, RESULTS, notes and LM to OUT.
 set -o pipefail
 out=$(realpath -m "$1"); recipe=$2; shift 2
-work=recipe_work/$recipe
+work=${WORK:-recipe_work/$recipe}
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$out/card.txt"
 python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'

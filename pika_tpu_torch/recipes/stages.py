@@ -86,10 +86,12 @@ class Recipe:
     ``device`` (``None``: the card) is passed to every CLI that takes one;
     ``flags`` replaces flag values in every CLI's argv (``set_flags``), the
     only way to shrink a recipe's widths or batches; ``results`` is the
-    ``RESULTS`` file, emptied when the recipe starts, as the scripts do."""
+    ``RESULTS`` file, emptied when the recipe starts, as the scripts do
+    (kept, and appended to, with ``append``)."""
 
     def __init__(self, work: str, device: Optional[str] = None, flags: Optional[dict] = None,
-                 results: Optional[str] = None, decode_timeout: float = 1500.0):
+                 results: Optional[str] = None, decode_timeout: float = 1500.0,
+                 append: bool = False):
         self.work = work
         self.device = device
         self.flags = dict(flags or {})
@@ -97,7 +99,7 @@ class Recipe:
         self.decode_timeout = decode_timeout
         self.times = {}  # stage title -> seconds (the stages that ran)
         os.makedirs(work, exist_ok=True)
-        if results:
+        if results and not append:
             open(results, "w").close()
 
     def say(self, msg: str) -> None:
