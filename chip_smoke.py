@@ -127,16 +127,26 @@ V=6268, random weights from a seed):
   --seeds 1``): every RESULTS line of its recipe's form, the fine-tune's
   first epoch loss finite, K1-K3 launched in the fine-tune and not in the
   pruned training (its steps bypass them; no validation set); the stage
-  seconds printed, the WERs printed, not judged;
+  seconds printed, the WERs printed, not judged; then ``pruned_grammar``
+  twice more in new work directories over the same corpus: the same epoch
+  losses, WERs and final weights, bit for bit;
+* the pruned steps' repeat: a warm step and 3 flagship steps run twice on
+  new models give the same losses and state, bit for bit;
 * the LSTM's fused route (one cuDNN call per layer, packed ragged batches)
   held to its loop over frames at the independent LAS encoder's shape (16 x
-  400 x 120, 3 bidirectional layers of 256) and the probe's (16 x 198 x
-  120, 2 of 128): outputs, final states and every gradient to 1e-5
-  relative L2, both routes timed; the probe's and the rnn encoder's step
-  printed beside their times on the loop.
+  400 x 120, 3 bidirectional layers of 256), the probe's (16 x 198 x 120,
+  2 of 128) and the prediction net's, unidirectional and unmasked (the
+  grammar recipe's 16 x 18 x 64 into 256, the flagship's 32 x 41 x 100 into
+  2 of 1024): outputs, final states and every gradient to 1e-5 relative
+  L2, both routes timed; the probe's and the rnn encoder's step printed
+  beside their times on the loop.
 
 Float32 throughout, with TF32 off for matmuls and cuDNN (convolutions and
-the LSTM), so the parity checks compare float32 with float32; attention
+the LSTM), so the parity checks compare float32 with float32, except where
+a phase says it runs with cuDNN's TF32 flag on as the CLIs leave it (the
+two repeats, whose convolution backward does not repeat with it off, and
+the prediction net's route, whose LSTM call sets cuDNN's flag to the
+matmuls' either way); attention
 rounds q, k, v and the probabilities to bf16 on both paths, as the JAX
 package does.
 
@@ -350,6 +360,12 @@ PRUNED_FT_EPOCHS = 1
 # of the probe's rnn encoder (2 s buckets); ragged lengths from the full
 # length down to 1, in shuffled order
 LSTM_SHAPES = (("LAS encoder", 16, 400, 120, 256, 3), ("probe encoder", 16, 198, 120, 128, 2))
+# the prediction net's form (unidirectional, unmasked) at (name, batch, U+1,
+# embedding, hidden, layers): the grammar recipe's (egs/mini_grammar.sh:
+# --embd_dim 64, --rnn_size 256, --dec_layers 1; the label bucket 17) and
+# the flagship's; run with cuDNN's TF32 flag on, as the CLIs leave it
+PREDICTION_SHAPES = (("recipe prediction net", 16, 18, 64, 256, 1),
+                     ("flagship prediction net", 32, 41, 100, 1024, 2))
 LSTM_RTOL = 1e-5  # relative L2, float32 on both routes (TF32 off)
 # the records these phases print beside: their steps on the LSTM's loop over
 # frames (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
@@ -3063,6 +3079,7 @@ def pruned_path(device, paths: dict, full_step_s: float) -> None:
             profile(lambda: step(batch, gen)["loss"].item(), "pruned train step")
         del model, step
         torch.cuda.empty_cache()
+    pruned_repeat(device, batch)
 
     work = os.path.dirname(paths["stats"])
     log = os.path.join(work, "pruned.log")
@@ -3080,6 +3097,36 @@ def pruned_path(device, paths: dict, full_step_s: float) -> None:
           f"pruned CLI: validation through K1 ({launches})")
     say(f"pruned phase: {time.perf_counter() - t_phase:.3f} s (CLI launches {launches}: K1 in "
         f"validation only)")
+
+
+def pruned_repeat(device, batch: dict) -> None:
+    """A warm step and TIMED_STEPS pruned steps (from seed 0, generator seed
+    1) run twice, each time on a new model, with cuDNN's TF32 flag on as the
+    CLIs leave it: the same losses and the same parameters and BatchNorm
+    statistics, bit for bit (the band's and the simple joint's gathers sum
+    their gradients in a fixed order).  With the flag off, as the rest of
+    this script runs, cuDNN picks convolution backward algorithms for the
+    TDNN that do not repeat, in the full-loss step too (PERF.md §6)."""
+    runs = []
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for _ in range(2):
+            model, step = train_setup(device, batch, simple_joint=True, step_kw=dict(
+                pruned_range=PRUNED_RANGE, simple_scale=0.5, pruned_scale=1.0))
+            gen = torch.Generator(device).manual_seed(1)
+            losses = [step(batch, gen)["loss"].item() for _ in range(1 + TIMED_STEPS)]
+            runs.append((losses, {k: v.clone() for k, v in model.state_dict().items()}))
+            del model, step
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (losses, state), (losses_again, state_again) = runs
+    differ = [k for k in state if not torch.equal(state[k], state_again[k])]
+    say(f"pruned steps run twice ({len(losses)} steps at {TRAIN_BATCH} x {SECONDS} s, cuDNN's "
+        f"TF32 flag on): losses "
+        f"{'equal' if losses == losses_again else f'{losses} against {losses_again}'}; "
+        f"{len(state) - len(differ)} of {len(state)} tensors of the model's state equal")
+    check(losses == losses_again and not differ,
+          f"pruned steps repeat bit for bit (differ: {differ[:5]})")
 
 
 def score_path(decoded: dict, work: str) -> None:
@@ -3171,43 +3218,58 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def lstm_route_path(device) -> None:
     """The LSTM's fused route (one cuDNN call per layer, packed ragged
-    batches) against its loop over frames at LSTM_SHAPES: outputs, final
-    states and the gradients of the input and of every parameter from one
-    backward of fixed cotangents; both routes' forward + backward timed by
-    CUDA events."""
-    for name, b, t, d, h, layers in LSTM_SHAPES:
+    batches) against its loop over frames at LSTM_SHAPES (bidirectional,
+    ragged) and PREDICTION_SHAPES (unidirectional, unmasked, train mode,
+    cuDNN's TF32 flag on): outputs, final states and the gradients of the
+    input and of every parameter from one backward of fixed cotangents;
+    both routes' forward + backward timed by CUDA events."""
+    shapes = [(*s, True) for s in LSTM_SHAPES] + [(*s, False) for s in PREDICTION_SHAPES]
+    for name, b, t, d, h, layers, ragged in shapes:
         gen = torch.Generator().manual_seed(t)
-        mod = LSTM(d, h, layers, bidirectional=True, device=device)
+        dirs = 2 if ragged else 1
+        mod = LSTM(d, h, layers, bidirectional=ragged, device=device)
         with torch.no_grad():  # torch's LSTM initialisation, U(-1/sqrt(H), 1/sqrt(H))
             for p in mod.parameters():
-                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(h // 2))
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(h // dirs))
         x = torch.randn(b, t, d, generator=gen).to(device)
-        lengths = torch.linspace(t, 1, b).round().long()[torch.randperm(b, generator=gen)]
+        lengths = None
+        if ragged:
+            lengths = torch.linspace(t, 1, b).round().long()[torch.randperm(b, generator=gen)]
         out_cot = torch.randn(b, t, h, generator=gen).to(device)
-        state_cot = [torch.randn(layers * 2, b, h // 2, generator=gen).to(device)
+        state_cot = [torch.randn(layers * dirs, b, h // dirs, generator=gen).to(device)
                      for _ in range(2)]
 
         def run(route):
             mod.zero_grad()
             xr = x.clone().requires_grad_()
-            out, (hh, cc) = getattr(mod, route)(xr, None, lengths.to(device))
+            out, (hh, cc) = getattr(mod, route)(
+                xr, None, None if lengths is None else lengths.to(device))
             ((out * out_cot).sum() + (hh * state_cot[0]).sum()
              + (cc * state_cot[1]).sum()).backward()
             return {"out": out.detach(), "h": hh.detach(), "c": cc.detach(), "dx": xr.grad,
                     **{f"d{k}": p.grad.clone() for k, p in mod.named_parameters()}}
 
-        fused, loop = run("forward_fused"), run("forward_loop")
+        torch.backends.cudnn.allow_tf32 = not ragged  # the CLIs leave it on
+        try:
+            fused, loop = run("forward_fused"), run("forward_loop")
+            fused_ms = time_ms(lambda: run("forward_fused"), 2, 5)
+            loop_ms = time_ms(lambda: run("forward_loop"), 1, 2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
         errs = {k: rel_l2(fused[k], loop[k]) for k in loop}
         worst = max(errs, key=errs.get)
-        fused_ms = time_ms(lambda: run("forward_fused"), 2, 5)
-        loop_ms = time_ms(lambda: run("forward_loop"), 1, 2)
-        say(f"LSTM route, {name} ({b} x {t} x {d}, {layers} bidirectional layers of {h}, "
-            f"lengths {int(lengths.min())}-{int(lengths.max())}): fused (cuDNN) forward + "
+        form = (f"{layers} bidirectional layers of {h}, lengths "
+                f"{int(lengths.min())}-{int(lengths.max())}" if ragged else
+                f"{layers} unidirectional layer{'s' if layers > 1 else ''} of {h}, unmasked, "
+                f"train mode, cuDNN's TF32 flag on")
+        say(f"LSTM route, {name} ({b} x {t} x {d}, {form}): fused (cuDNN) forward + "
             f"backward {fused_ms:.3f} ms, the loop {loop_ms:.3f} ms ({loop_ms / fused_ms:.1f}x); "
             f"{len(errs)} tensors within {errs[worst]:.2e} rel L2 (worst {worst})")
         check(all(e <= LSTM_RTOL for e in errs.values()),
               f"LSTM route {name}: fused against the loop {errs}")
-        check(not fused["out"][lengths.argmin(), 1:].any(), f"LSTM route {name}: 0 past a length")
+        if ragged:
+            check(not fused["out"][lengths.argmin(), 1:].any(),
+                  f"LSTM route {name}: 0 past a length")
 
 
 def las_diversity_path(device, work: str) -> None:
@@ -3301,6 +3363,38 @@ def pruned_grammar_path(device, work: str) -> None:
             + "; WERs (printed, not judged) "
             + ", ".join(f"{t} {w}" for t, w in out["wer"].items()))
     say(f"pruned_finetune: epoch losses {losses}; {open(ft.results).read().splitlines()[4]}")
+    pruned_grammar_repeat(work, run)
+
+
+def pruned_grammar_repeat(work: str, run: dict) -> None:
+    """``pruned_grammar`` twice more, each in a new work directory over the
+    cut recipe's corpus and LM, with cuDNN's TF32 flag on as the CLIs leave
+    it (``pruned_repeat``): the cut pruned training's per-epoch losses, its
+    WERs and its final bundle's weights equal, bit for bit."""
+    outs, weights, walls = [], [], []
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for i in range(2):
+            again = f"{work}_repeat{i}"
+            os.makedirs(again)
+            for name in ("data", "dev", "fbank.conf"):
+                os.symlink(os.path.join(work, name), os.path.join(again, name))
+            t0 = time.perf_counter()
+            outs.append(pruned_grammar.run(again, **run))
+            walls.append(time.perf_counter() - t0)
+            weights.append(torch.load(os.path.join(
+                pruned_grammar.Commands(again, 1, **RECIPE_CUT).model, "model.pt"),
+                weights_only=True))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    differ = [k for k in weights[0] if not torch.equal(weights[0][k], weights[1][k])]
+    say(f"pruned_grammar run twice ({walls[0]:.1f} and {walls[1]:.1f} s, cuDNN's TF32 flag on): "
+        f"epoch losses {outs[0]['losses']} and {outs[1]['losses']}; WERs {outs[0]['wer']} and "
+        f"{outs[1]['wer']}; {len(weights[0]) - len(differ)} of {len(weights[0])} tensors of the "
+        f"final bundle equal")
+    check(all(out["ok"] for out in outs) and outs[0]["losses"] == outs[1]["losses"]
+          and outs[0]["wer"] == outs[1]["wer"] and not differ,
+          f"pruned_grammar repeats bit for bit (differ: {differ[:5]})")
 
 
 def main() -> int:

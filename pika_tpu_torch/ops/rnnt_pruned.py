@@ -19,10 +19,14 @@ transducer recipe).
    saved tensors stay at band size) and the banded DP with per-row shifts.
 
 The JAX package computes all of this outside its Pallas kernels; here it is
-plain PyTorch on every device.  A band moves at most ``s_range - 1``
-labels a frame, so an utterance with ``T * (s_range - 1) < U`` has no
-in-band path; it (like any whose band misses the exit) gets a pruned loss
-of 0, and the simple loss still trains it.
+plain PyTorch on every device.  Its gathers whose targets repeat (the
+band's rows of ``ay``/``gy``, the simple joint's label logits of ``am``)
+go through ``gather_rows``, whose backward sums in a fixed order, so that
+a pruned training repeats to the bit on the card as the full loss does.
+A band moves at most ``s_range - 1`` labels a frame, so an utterance with
+``T * (s_range - 1) < U`` has no in-band path; it (like any whose band
+misses the exit) gets a pruned loss of 0, and the simple loss still
+trains it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,34 @@ from torch.utils.checkpoint import checkpoint
 from pika_tpu_torch.ops.rnnt_loss import NEG, _labels_ext, rnnt_alpha, rnnt_occupancy
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table.index_select(0, index)`` with a backward that sums the
+    cotangents of rows sharing a target in a fixed order:
+    ``index_put_(accumulate=True)``, which on the card sorts the targets
+    (a stable sort) and adds each target's rows in index order, where the
+    backward of ``gather`` or ``index_select`` adds them with atomics in
+    whatever order they land."""
+
+    @staticmethod
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows, *grad.shape[1:]))
+        return out.index_put_((index,), grad, accumulate=True), None
+
+
+def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Rows ``index`` (M,) int64 of ``table`` (N, ...): (M, ...), the
+    values bit for bit those of indexing; differentiable in ``table`` with
+    a deterministic backward (``_GatherRows``)."""
+    return _GatherRows.apply(table, index)
+
+
 def simple_channels(am: torch.Tensor, lm: torch.Tensor, labels: torch.Tensor):
     """(blank_lp, emit_lp), each (B, T, U+1), of the additive joint.
     am (B, T, V) and lm (B, U+1, V) float32; labels (B, U)."""
@@ -43,7 +75,10 @@ def simple_channels(am: torch.Tensor, lm: torch.Tensor, labels: torch.Tensor):
     amx, lmx = am.detach().amax(-1), lm.detach().amax(-1)
     z = torch.exp(am - amx[..., None]) @ torch.exp(lm - lmx[..., None]).transpose(1, 2)
     lse = torch.log(z.clamp(min=1e-30)) + amx[:, :, None] + lmx[:, None, :]
-    am_y = am.gather(2, labels_ext[:, None, :].expand(b, t_max, -1))       # (B, T, U+1)
+    # am[b, t, labels_ext[b, u]]; a label that repeats in an utterance shares its entry
+    rows = torch.arange(b * t_max, device=am.device).view(b, t_max, 1) * v
+    am_y = gather_rows(am.reshape(-1), (rows + labels_ext[:, None, :]).reshape(-1))
+    am_y = am_y.view(b, t_max, -1)                                          # (B, T, U+1)
     lm_y = lm.gather(2, labels_ext[:, :, None])[..., 0][:, None, :]        # (B, 1, U+1)
     blank_lp = am[..., 0][:, :, None] + lm[..., 0][:, None, :] - lse
     emit_lp = am_y + lm_y - lse
@@ -112,8 +147,10 @@ def _band_chunk(ax_c, gx_c, sb_c, ay, gy, w2, b2, labels_ext, s_range: int):
     u1 = ay.shape[1]
     u_idx = (sb_c[..., None] + torch.arange(s_range, device=sb_c.device)).clamp(0, u1 - 1)
     flat = u_idx.reshape(b, tc * s_range)
-    ay_b = ay.gather(1, flat[..., None].expand(-1, -1, h)).reshape(b, tc, s_range, h)
-    gy_b = gy.gather(1, flat[..., None].expand(-1, -1, h)).reshape(b, tc, s_range, h)
+    # every (t, j) whose band covers u reads row u: rows of ay and gy shared by many cells
+    rows = (torch.arange(b, device=flat.device)[:, None] * u1 + flat).reshape(-1)
+    ay_b = gather_rows(ay.reshape(b * u1, h), rows).view(b, tc, s_range, h)
+    gy_b = gather_rows(gy.reshape(b * u1, h), rows).view(b, tc, s_range, h)
     lbl_b = labels_ext.gather(1, flat).reshape(b, tc, s_range)
     hh = torch.tanh(ax_c[:, :, None] + ay_b) * torch.sigmoid(gx_c[:, :, None] + gy_b)
     z = hh @ w2 + b2

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
-the decode loops' CUDA graphs against their eager loops, and the LSTM's
-fused route (cuDNN) against its loop over frames.
+the decode loops' CUDA graphs against their eager loops, the LSTM's fused
+route (cuDNN) against its loop over frames, and the pruned training's
+repeat to the bit.
 
 Needs a CUDA card and nvcc; skips without a card.  This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -43,7 +44,15 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_reference,
 )
 from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused, rnnt_occupancy
-from pika_tpu_torch.ops.rnnt_pruned import prune_ranges, rnnt_loss_pruned, simple_channels
+from pika_tpu_torch.features.fbank import FbankConfig
+from pika_tpu_torch.ops.rnnt_pruned import (
+    gather_rows,
+    prune_ranges,
+    rnnt_loss_pruned,
+    simple_channels,
+)
+from pika_tpu_torch.train.lr import make_optimizer
+from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_train_step
 
 pytestmark = pytest.mark.gpu
 # the module itself: the package re-exports a function of the same name
@@ -1139,3 +1148,136 @@ def test_lstm_fused_route_takes_the_matmuls_precision(cuda_device):
         torch.backends.cudnn.allow_tf32 = False
     for k in loop:
         assert _rel_l2(fused[k], loop[k]) <= 1e-5, k
+
+
+# the prediction net's form (unidirectional, unmasked, no initial state) at
+# (batch, U+1, embedding, hidden, layers): the grammar recipe's
+# (egs/mini_grammar.sh: --embd_dim 64, --rnn_size 256, --dec_layers 1; the
+# label bucket 17) and the flagship's (embedding 100, H 1024, 2 layers, 40
+# labels)
+PREDICTION_NETS = {"recipe": (16, 18, 64, 256, 1), "flagship": (32, 41, 100, 1024, 2)}
+
+
+@pytest.mark.parametrize("shape", sorted(PREDICTION_NETS))
+def test_lstm_prediction_net_route_equals_the_loop(cuda_device, shape):
+    """Train mode with cuDNN's TF32 flag left on, as the CLIs leave it: the
+    fused route's outputs, final states and the gradients of the input and
+    of every parameter to 1e-5 relative L2 of the loop's."""
+    b, t, d, h, layers = PREDICTION_NETS[shape]
+    g = torch.Generator().manual_seed(t)
+    mod = LSTM(d, h, layers, device=cuda_device).train()
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) / h ** 0.5)
+    x = torch.randn(b, t, d, generator=g).to(cuda_device)
+    cots = [torch.randn(b, t, h, generator=g).to(cuda_device),
+            *[torch.randn(layers, b, h, generator=g).to(cuda_device) for _ in range(2)]]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        fused, loop = (_lstm_run(mod, route, x, None, cots)
+                       for route in ("forward", "forward_loop"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert set(fused) == set(loop) and len(loop) == 4 + 3 * layers
+    for k in loop:
+        assert _rel_l2(fused[k], loop[k]) <= 1e-5, k
+
+
+def test_gather_rows_backward_repeats_and_is_the_segment_sum(cuda_device):
+    """The flagship band's rows of ay (B 32, U+1 41, H 1024; each row read by
+    about 29 cells): the backward twice gives equal bits, and each row is
+    the float64 sum of its cells' cotangents to float32 rounding."""
+    g = torch.Generator().manual_seed(3)
+    b, u1, h, cells = 32, 41, 1024, 239 * 5
+    table = torch.randn(b * u1, h, generator=g).to(cuda_device)
+    flat = torch.randint(0, u1, (b, cells), generator=g).sort(dim=1).values
+    index = (torch.arange(b)[:, None] * u1 + flat).reshape(-1).to(cuda_device)
+    cot = torch.randn(b * cells, h, generator=g).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        leaf = table.clone().requires_grad_()
+        out = gather_rows(leaf, index)
+        assert torch.equal(out, table[index])
+        out.backward(cot)
+        grads.append(leaf.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = torch.zeros(b * u1, h, dtype=torch.float64, device=cuda_device)
+    ref.index_add_(0, index, cot.double())
+    mag = torch.zeros_like(ref).index_add_(0, index, cot.double().abs())
+    count = torch.bincount(index, minlength=b * u1).double()[:, None]
+    assert ((grads[0].double() - ref).abs() <= count * 2.0 ** -24 * mag + 1e-30).all()
+
+
+# the pruned training's shapes: the flagship (bench.py's batch of 32 x 10 s,
+# 40 labels of 6268; sgd) and the grammar recipe's acoustic model
+# (egs/mini_grammar.sh: 40 mel bins, tdnn_nhid 256, rnn_size 256, 31 outputs,
+# dropout 0.1; batch 16 of up to 4 s and 17 labels; adam)
+PRUNED_TRAININGS = {
+    "flagship": dict(model=dict(input_dim=240, vocab_size=6268, hid_dim=1024, embd_dim=100,
+                                dec_layers=2, tdnn_nhid=1024),
+                     mel=80, batch=32, seconds=10.0, labels=40,
+                     optim=dict(optim="sgd", initial_lr=0.003, final_lr=0.0001,
+                                total_batches=100000, momentum=0.9, grad_clip=3.0)),
+    "recipe": dict(model=dict(input_dim=120, vocab_size=31, hid_dim=256, embd_dim=64,
+                              dec_layers=1, tdnn_nhid=256, dropout=0.1,
+                              tdnn_transformer_dropout=0.1),
+                   mel=40, batch=16, seconds=4.0, labels=17,
+                   optim=dict(optim="adam", initial_lr=0.001, final_lr=0.0008,
+                              total_batches=1880, momentum=0.9, grad_clip=3.0)),
+}
+
+
+def _pruned_training(device, shape: str, steps: int = 3):
+    """``steps`` pruned steps (--pruned_loss_range 5 --simple_loss_scale 0.5)
+    from seed 0 on a seeded batch of noise with ragged lengths: the losses
+    and the model's state."""
+    cfg = PRUNED_TRAININGS[shape]
+    rng = np.random.default_rng(0)
+    n = int(16000 * cfg["seconds"])
+    b, u = cfg["batch"], cfg["labels"]
+    wav_lens = np.concatenate([[n], rng.integers(n // 2, n + 1, b - 1)]).astype(np.int32)
+    label_lens = np.concatenate([[u], rng.integers(u // 2, u + 1, b - 1)]).astype(np.int32)
+    vocab = cfg["model"]["vocab_size"]
+    batch = {"wavs": torch.from_numpy((rng.standard_normal((b, n)) * 4000).astype(np.float32)),
+             "wav_lens": torch.from_numpy(wav_lens),
+             "labels": torch.from_numpy(rng.integers(1, vocab, (b, u)).astype(np.int32)),
+             "label_lens": torch.from_numpy(label_lens)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    model = init_transducer(TransducerConfig(encoder_type="tdnn_transformer", decoder_type="rnn",
+                                             enc_layers=9, tdnn_layers=9, simple_joint=True,
+                                             **cfg["model"]),
+                            torch.Generator(device).manual_seed(0), device)
+    fbank = dict(sample_frequency=16000, window_type="hamming", low_freq=40.0,
+                 high_freq=-200.0, num_mel_bins=cfg["mel"])
+    feat_cfg = dict(max_samples=n, lctx=1, rctx=1)
+    with torch.no_grad():
+        plain = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=0.0, **fbank),
+                                                 **feat_cfg), device=device)
+        feats, _ = plain(batch["wavs"], batch["wav_lens"])
+        frames = feats.reshape(-1, feats.shape[-1])
+        offset, scale = -frames.mean(0), 1.0 / frames.std(0)
+    featurizer = make_featurizer(FeaturizerConfig(fbank=FbankConfig(dither=1.0, **fbank),
+                                                  spec_augment=True, **feat_cfg),
+                                 offset, scale, device=device)
+    step = make_train_step(model, make_optimizer(model.parameters(), **cfg["optim"]), featurizer,
+                           pruned_range=5, simple_scale=0.5)
+    gen = torch.Generator(device).manual_seed(1)
+    losses = [step(batch, gen)["loss"].item() for _ in range(steps)]
+    return losses, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("shape", sorted(PRUNED_TRAININGS))
+def test_pruned_training_repeats_bit_for_bit(cuda_device, shape):
+    """Three pruned steps run twice from the same seeds give the same losses
+    and the same parameters and BatchNorm statistics, bit for bit (the
+    band's and the simple joint's gathers sum their gradients in a fixed
+    order), with cuDNN's TF32 flag left on, as the CLIs leave it."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        (losses, state), (losses2, state2) = (_pruned_training(cuda_device, shape)
+                                              for _ in range(2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert all(np.isfinite(losses)) and losses == losses2
+    assert set(state) == set(state2)
+    assert [k for k in state if not torch.equal(state[k], state2[k])] == []

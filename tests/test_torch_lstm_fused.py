@@ -5,8 +5,9 @@ the JAX package's ``pika_tpu/models/lstm.py`` on converted weights: masked
 and bidirectional with ragged lengths (a full row, a row of length 1 and
 one of length 0), with and without an initial state; outputs, final states
 and the gradients of the input, the initial state and every parameter to
-1e-5 relative L2; and train-mode dropout between layers drawn from the
-same generator."""
+1e-5 relative L2; the prediction net's form (unidirectional, unmasked)
+through a backward to the same; and train-mode dropout between layers
+drawn from the same generator."""
 
 import numpy as np
 import pytest
@@ -48,7 +49,8 @@ def _torch_run(mod, route, x, lengths, state, cots, generator=None):
     mod.zero_grad()
     xt = torch.from_numpy(x).requires_grad_()
     st = None if state is None else tuple(torch.from_numpy(s).requires_grad_() for s in state)
-    out, (h, c) = getattr(mod, route)(xt, generator, torch.from_numpy(lengths), st)
+    lengths = None if lengths is None else torch.from_numpy(lengths)
+    out, (h, c) = getattr(mod, route)(xt, generator, lengths, st)
     loss = sum((v * torch.from_numpy(w)).sum() for v, w in zip((out, h, c), cots))
     loss.backward()
     grads = {"x": xt.grad}
@@ -122,16 +124,37 @@ def test_fused_route_draws_the_loops_dropout():
 
 
 def test_fused_route_without_lengths_matches_the_loop():
-    """The prediction net's form: unidirectional, unmasked."""
-    x, _, _, _, (d, h) = _inputs(11, 2, False, False)
-    torch.manual_seed(1)
-    mod = LSTM(d, h, 2)
-    for p in mod.parameters():
-        torch.nn.init.uniform_(p, -0.3, 0.3)
-    xt = torch.from_numpy(x)
-    for got, want in zip(mod.forward_fused(xt)[0:1] + mod.forward_fused(xt)[1],
-                         mod.forward_loop(xt)[0:1] + mod.forward_loop(xt)[1]):
-        assert _rel_l2(got.detach(), want.detach()) <= TOL
+    """The prediction net's form (``Transducer.predict``: unidirectional,
+    unmasked, no initial state) in train mode, one and two layers, through
+    the backward: the outputs, final states and the gradients of the input
+    and of every parameter, against the loop and the JAX package."""
+    import jax
+    import jax.numpy as jnp
+
+    from pika_tpu.models.lstm import LSTM as LSTMJax
+
+    for layers in (1, 2):
+        x, _, _, cots, (d, h) = _inputs(20 + layers, layers, False, False)
+        mod = LSTMJax(h, layers)
+        variables = mod.init(jax.random.PRNGKey(layers), jnp.asarray(x))
+
+        def jax_loss(params, xj):
+            out, (hh, cc) = mod.apply(params, xj)
+            return sum((v * w).sum() for v, w in zip((out, hh, cc), cots)), (out, hh, cc)
+
+        (_, ref), (g_params, g_x) = jax.value_and_grad(jax_loss, argnums=(0, 1),
+                                                       has_aux=True)(variables, jnp.asarray(x))
+        ref_grads = {"x": g_x, **state_dict_from_flax(jax.tree.map(np.asarray, g_params))}
+        pt = load_flax_variables(LSTM(d, h, layers), jax.tree.map(np.asarray, variables)).train()
+        fused, fused_g = _torch_run(pt, "forward_fused", x, None, None, cots)
+        loop, loop_g = _torch_run(pt, "forward_loop", x, None, None, cots)
+        assert set(fused_g) == set(loop_g) == set(ref_grads)
+        for name, got, want, ref_v in zip(("out", "h", "c"), fused, loop, ref):
+            assert _rel_l2(got, want) <= TOL, (layers, name)
+            assert _rel_l2(got, ref_v) <= TOL, (layers, name)
+        for name in fused_g:
+            assert _rel_l2(fused_g[name], loop_g[name]) <= TOL, (layers, name)
+            assert _rel_l2(fused_g[name], ref_grads[name]) <= TOL, (layers, name)
 
 
 def test_fused_route_takes_the_matmuls_tf32_flag_and_restores_cudnns(monkeypatch):
