@@ -132,6 +132,15 @@ V=6268, random weights from a seed):
   losses, WERs and final weights, bit for bit;
 * the pruned steps' repeat: a warm step and 3 flagship steps run twice on
   new models give the same losses and state, bit for bit;
+* the throughput tools (``pika_tpu_torch/tools/``), each ``main`` in
+  process at its defaults: ``bench_train`` (one JSON line after two
+  repetitions of 10 steps within 10 %) with the full loss, launching
+  K1-K3, and with ``BENCH_PRUNED=5``, launching none; ``bench_decode``
+  without an LM (with its attribution) and per token through the advance
+  cache; ``bench_cli_train`` at 64 utterances; each figure beside this
+  script's own for the same work; then one of ``bench_train``'s steps
+  traced through ``utils/profiling.trace``, the trace holding its
+  ``annotate`` regions and K1's, K2's and K3's kernels;
 * the LSTM's fused route (one cuDNN call per layer, packed ragged batches)
   held to its loop over frames at the independent LAS encoder's shape (16 x
   400 x 120, 3 bidirectional layers of 256), the probe's (16 x 198 x 120,
@@ -161,6 +170,8 @@ before that line.  There is no CPU mode: without a CUDA card it exits 1.
 from __future__ import annotations
 
 import contextlib
+import gc
+import glob
 import io
 import json
 import math
@@ -172,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -244,6 +256,7 @@ from pika_tpu_torch.recipes import (
     pruned_grammar,
     pruned_retune,
 )
+from pika_tpu_torch.tools import bench_cli_train, bench_decode, bench_train
 from pika_tpu_torch.train.lr import Optimizer, make_optimizer
 from pika_tpu_torch.train.mbr import (
     make_mbr_step,
@@ -254,6 +267,8 @@ from pika_tpu_torch.train.mbr import (
 )
 from pika_tpu_torch.train.train_las import main as las_main
 from pika_tpu_torch.train.train_mbr import build_parser as mbr_parser, main as mbr_main
+from pika_tpu_torch.train.train_transducer import batch_stream as train_cli_batches
+from pika_tpu_torch.train.train_transducer import build_parser as train_cli_parser
 from pika_tpu_torch.train.train_transducer import main as train_main
 from pika_tpu_torch.train.step import (
     FeaturizerConfig,
@@ -261,6 +276,7 @@ from pika_tpu_torch.train.step import (
     make_featurizer,
     make_train_step,
 )
+from pika_tpu_torch.utils import profiling
 
 VOCAB = 6268
 BATCH = 8
@@ -474,6 +490,15 @@ TRANSFORMER_DECODER = dict(decoder_type="transformer", dec_layers=2)
 # on both (sums in another order over 1024-wide products, 6268-way
 # logsumexps and a DP over 239 frames), per utterance
 PRUNED_RANGE, PRUNED_WARM_SCALE, PRUNED_RTOL = 5, 0.1, 1e-4
+# the throughput tools (pika_tpu_torch/tools/) at their defaults, in process:
+# bench_cli_train's --utts cut to BENCH_CLI_UTTS (depth: 8 steps of its batch
+# 8 an epoch); a tool's figure more than TOOL_GAP from this script's own for
+# the same work is flagged, to be explained (PERF.md); in a trace of
+# bench_train's step, a kernel of each of K1-K3 (csrc/joint_fwd.cu's lse,
+# csrc/joint_bwd.cu's dh and dW2 kernels) under kernel_label's labels
+BENCH_CLI_UTTS = 64
+TOOL_GAP = 0.15
+TRACE_KERNELS = {"K1": "lse_kernel", "K2": "dh_kernel", "K3": "dw_kernel"}
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -984,6 +1009,12 @@ def cli_run(what: str, argv: list, log: str, main=None) -> tuple[list, float, fl
     return lines, secs, peak
 
 
+def epoch_utt_s(lines: list) -> list:
+    """The utt/s of each "===> Epoch N wall ..." line of a training log."""
+    return [float(m[1]) for m in (re.match(r"===> Epoch \d+ wall \S+, \d+ utts, (\S+) utt/s", x)
+                                  for x in lines) if m]
+
+
 def first_batch_loss(lines: list) -> float:
     """The first per-batch line's loss per label (--log_per_n_frames 1)."""
     return float(next(re.match(r"Loss: (\S+)", x).group(1) for x in lines
@@ -1062,8 +1093,8 @@ def train_cli_path(device, work: str) -> tuple[dict, dict]:
     (its first batch against float32's), the bf16 and float32 steps timed,
     the long-utterance steps, one --loader utt epoch and the decode CLI on
     the trained bundle, all under ``work``.  Returns K1-K3's launches over
-    the first run, and the corpus' paths with the trained bundle
-    (``"bundle"``) for the second-stage phases."""
+    the first run, the corpus' paths with the trained bundle (``"bundle"``)
+    for the second-stage phases, and the first run's epochs' utt/s."""
     t_phase = time.perf_counter()
     paths = write_cli_corpus(work, device)
     train_lst = os.path.join(paths["train"], "data.lst")
@@ -1085,6 +1116,7 @@ def train_cli_path(device, work: str) -> tuple[dict, dict]:
         check(os.path.exists(os.path.join(exp, f"model.epoch.{e}", "model.pt")),
               f"bundle model.epoch.{e}")
     f32_first = first_batch_loss(lines)
+    epoch_rates = epoch_utt_s(lines)
 
     # --resume to a third epoch: the optimizer the CLI restores against
     # the saved state
@@ -1161,7 +1193,7 @@ def train_cli_path(device, work: str) -> tuple[dict, dict]:
         f"{wer:.4f} (trained {CLI_EPOCHS + 1} epochs on noise: printed, not judged)")
     paths["bundle"] = os.path.join(exp, f"model.epoch.{CLI_EPOCHS}")
     say(f"train CLI phase: {time.perf_counter() - t_phase:.3f} s")
-    return launches, paths
+    return launches, paths, epoch_rates
 
 
 def decode_cli_best(argv: list) -> tuple[dict, list]:
@@ -2194,7 +2226,196 @@ def beam_path(device) -> dict:
     del model, featurizer, enc
     torch.cuda.empty_cache()
     return {"beam_s": beam_s, "beam_eager_s": eager_s, "steps": steps, "greedy_s": greedy_s,
+            "wave_s": wave_s,
             "bf16_s": bf16_s}
+
+
+@contextlib.contextmanager
+def bench_env(**knobs):
+    """``os.environ`` without its ``BENCH_*`` variables and with ``knobs``
+    set, restored on exit."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def run_tool(what: str, main, argv: list, **knobs) -> list:
+    """A tool's ``main(argv)`` in process under ``bench_env(**knobs)``, its
+    stderr and stdout captured and printed; a non-zero exit fails the run.
+    Returns its stdout lines."""
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    t0 = time.perf_counter()
+    with bench_env(**knobs), contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            main(argv)
+        except SystemExit as exit_info:
+            code = exit_info.code
+    for line in err.getvalue().splitlines() + out.getvalue().splitlines():
+        say(f"{what}: {line}")
+    say(f"{what}: {time.perf_counter() - t0:.3f} s in all")
+    check(code in (0, None), f"{what} exited {code}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out.getvalue().splitlines()
+
+
+def bench_train_value(what: str, lines: list) -> float:
+    """bench_train's one stdout line: the JSON result's utt/s."""
+    check(len(lines) == 1, f"{what}: one stdout line, got {lines}")
+    result = json.loads(lines[0])
+    check(list(result) == ["metric", "value", "unit", "vs_baseline"]
+          and result["metric"] == "rnnt_train_utterances_per_sec_per_chip"
+          and result["value"] > 0, f"{what}: result {result}")
+    return result["value"]
+
+
+def bench_decode_ms(what: str, lines: list) -> float:
+    """bench_decode's summary line: ms a batch."""
+    found = [m for m in (re.match(r"beam=\d+ batch=\d+ fst=\w+: (\S+) ms/batch, \S+ utt/s, "
+                                  r"RTF \S+", x) for x in lines) if m]
+    check(len(found) == 1, f"{what}: one summary line in {lines}")
+    return float(found[0][1])
+
+
+def compare(what: str, tool: float, own: float, unit: str) -> None:
+    gap = tool / own - 1
+    say(f"{what}: the tool {tool:.4f} {unit}, chip_smoke's own {own:.4f} {unit}, gap {gap:+.1%}"
+        + (f" (over {TOOL_GAP:.0%}: explained in PERF.md)" if abs(gap) > TOOL_GAP else ""))
+
+
+def trace_kernel_label(name: str) -> str:
+    """``kernel_label``'s form of a kernel's name in a trace, which the
+    profiler demangles (``ns::name<N, ...>(args)``)."""
+    found = re.search(r"(\w+_kernel)(?:<(\d+)[^>]*>)?", name)
+    if not found:
+        return name[:60]
+    return f"{found[1]}<{found[2]}>" if found[2] else found[1]
+
+
+def trace_bench_step(device, work: str) -> None:
+    """One step of bench_train's (its model, featurizer, optimizer, batch)
+    traced through ``utils/profiling.trace`` after a warm step: the Chrome
+    trace must hold the ``annotate`` regions and a kernel of each of K1-K3
+    under the label ``kernel_label`` gives it in the build log."""
+    cfg, feat_cfg, _ = bench_train.config({}, device)
+    _, step = bench_train.make_step(cfg, feat_cfg, device)
+    batch = bench_train.make_batch(TRAIN_BATCH, feat_cfg.max_samples, VOCAB, device)
+    gen = torch.Generator(device).manual_seed(1)
+    step(batch, gen)["loss"].item()
+    logdir = os.path.join(work, "bench_trace")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        with profiling.annotate("bench_train_step"):
+            loss = step(batch, gen)["loss"]
+        with profiling.annotate("bench_train_loss_read"):
+            loss = loss.item()
+    wall = time.perf_counter() - t0
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    check(len(files) == 1, f"one trace file in {logdir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = {trace_kernel_label(e["name"]) for e in events if e.get("cat") == "kernel"}
+    lib = cuda_build.build()
+    built = [kernel_label(line.split("'")[1])
+             for line in (lib.parent / "build.log").read_text().splitlines()
+             if "Compiling entry function" in line]
+    say(f"traced bench_train step: {wall:.3f} s (trace on), loss {loss:.4f}; "
+        f"{os.path.getsize(files[0]) / 2**20:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} distinct kernels")
+    check({"bench_train_step", "bench_train_loss_read"} <= names, "the trace holds the annotations")
+    for k, base in TRACE_KERNELS.items():
+        labels = [x for x in built if x.split("<")[0] == base]
+        seen = sorted(set(labels) & kernels)
+        check(labels and seen, f"the trace holds {k}'s {base} (built as {labels})")
+        say(f"  {k}: {', '.join(seen)} in the trace")
+    shutil.rmtree(logdir)
+    del step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bench_tools_path(device, work: str, full_step_s: float, beam: dict, cli_epochs: list,
+                     cli_paths: dict) -> None:
+    """The throughput tools at their defaults, each ``main`` in process:
+    ``bench_train`` with the full loss (K1-K3 launched) and with
+    ``BENCH_PRUNED=5`` (none launched), ``bench_decode`` with ``--fst off
+    --attribution``, at beam_path's symbol cap and with ``--fst per_token``
+    (exact selection through the advance cache), ``bench_cli_train`` at
+    ``--utts`` BENCH_CLI_UTTS; each tool's figure beside this script's own
+    for the same work (train_path's step, beam_path's graphed beam 8, the
+    training CLI phase's epochs on ``cli_paths``' corpus, whose batches'
+    padded shapes are counted); then one of bench_train's steps traced
+    through ``utils/profiling``."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    utt_s = bench_train_value("bench_train", run_tool("bench_train", bench_train.main, []))
+    launches = joint_launches()
+    say(f"bench_train launches: {launches}")
+    check(all(n > 0 for n in launches.values()), f"bench_train launched K1-K3: {launches}")
+    compare(f"bench_train step ({TRAIN_BATCH} x {SECONDS} s, full loss) against train_path's "
+            f"median step", TRAIN_BATCH / utt_s, full_step_s, "s")
+
+    reset_launches()
+    what = f"bench_train BENCH_PRUNED={PRUNED_RANGE}"
+    utt_s = bench_train_value(what, run_tool(what, bench_train.main, [],
+                                             BENCH_PRUNED=str(PRUNED_RANGE)))
+    check(sum(joint_launches().values()) == 0, f"{what} launched none of K1-K3")
+    say(f"{what}: {TRAIN_BATCH / utt_s:.4f} s a step, no launch of K1-K3")
+
+    what = "bench_decode --fst off"
+    lines = run_tool(what, bench_decode.main, ["--attribution"])
+    ms = bench_decode_ms(what, lines)
+    enc_ms = float(next(re.search(r"featurizer\+encoder (\S+) ms", x)[1] for x in lines
+                        if "attribution:" in x))
+    compare(f"{what} (waveforms, bf16 matmuls, 64 symbols, sm_scale 1.2) against beam_path's "
+            f"graphed beam 8 from the waveforms (float32, {MAX_SYMBOLS} symbols)", ms / 1e3,
+            beam["wave_s"], "s")
+    # the random model's hypotheses run to the cap: at beam_path's cap the
+    # tool's search takes beam_path's loop steps, at bf16
+    what = f"bench_decode --max_symbols {MAX_SYMBOLS}"
+    ms = bench_decode_ms(what, run_tool(what, bench_decode.main, ["--max_symbols",
+                                                                  str(MAX_SYMBOLS)]))
+    compare(f"{what} against beam_path's bf16 search from the encoder output ({beam['steps']} "
+            f"loop steps) plus the tool's featurizer and encoder", ms / 1e3,
+            beam["bf16_s"] + enc_ms / 1e3, "s")
+    what = "bench_decode --fst per_token"
+    lines = run_tool(what, bench_decode.main, ["--fst", "per_token"])
+    check(any(x.startswith("  advance cache:") for x in lines), f"{what}: the advance cache")
+    bench_decode_ms(what, lines)
+
+    what = f"bench_cli_train --utts {BENCH_CLI_UTTS}"
+    reset_launches()
+    lines = run_tool(what, bench_cli_train.main, ["--utts", str(BENCH_CLI_UTTS)])
+    launches = joint_launches()
+    say(f"{what} launches: {launches}")
+    check(all(n > 0 for n in launches.values()), f"{what} launched K1-K3: {launches}")
+    rates = epoch_utt_s(lines)
+    check(len(rates) == 2 and any(x.startswith("total wall") for x in lines),
+          f"{what}: 2 epoch lines and the total")
+    compare(f"{what} epoch 1 (9 s utterances) against the training CLI phase's epoch 1 "
+            f"({CLI_SECONDS[0]}-{CLI_SECONDS[1]} s)", rates[-1], cli_epochs[-1], "utt/s")
+    # what each epoch's batches pad to: the phase's --max_wav_seconds
+    # (default 20) makes 5/10/15/20 s buckets, the tool's 10 makes 2.5/5/7.5/10
+    args = train_cli_parser().parse_args([os.path.join(cli_paths["train"], "data.lst"), "log",
+                                          "exp", *CLI_MODEL_FLAGS, *CLI_RECIPE_FLAGS])
+    cfg = cli_common.loader_cfg_from_args(args, batch_size=args.batch_size)
+    padded = Counter(f"{b['wavs'].shape[1] / SR:g} s x {b['labels'].shape[1]}"
+                     for b in train_cli_batches(args, cfg, 1))
+    say(f"  the CLI phase's epoch-1 batches by padded shape (bucket s x label bucket): "
+        f"{dict(padded)}; the tool's 9 s utterances (speed <= 1.04) all pad to 10 s")
+
+    trace_bench_step(device, work)
+    say(f"bench tools phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def profile_beam(device, work: str) -> None:
@@ -3439,7 +3660,7 @@ def main() -> int:
     long_utterances(device)
     small_heads_path(device)
     launches, full_step_s = train_path(device)
-    cli_launches, cli_paths = train_cli_path(device, os.path.join(work, "train_cli"))
+    cli_launches, cli_paths, cli_epochs = train_cli_path(device, os.path.join(work, "train_cli"))
     mbr_launches = mbr_path(device, cli_paths)
     las_path(device, cli_paths)
     dist_path(device, cli_paths)
@@ -3453,6 +3674,7 @@ def main() -> int:
     backend_parity(device)
     flash_launches = flash_train_path(device)
     flash_step_parity(device)
+    bench_tools_path(device, work, full_step_s, lstm_beam, cli_epochs, cli_paths)
     profile_beam(device, work)
     shutil.rmtree(work)
 
