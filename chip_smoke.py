@@ -140,7 +140,8 @@ V=6268, random weights from a seed):
   cache; ``bench_cli_train`` at 64 utterances; each figure beside this
   script's own for the same work; then one of ``bench_train``'s steps
   traced through ``utils/profiling.trace``, the trace holding its
-  ``annotate`` regions and K1's, K2's and K3's kernels;
+  ``span`` regions, the training step's own spans and K1's, K2's and
+  K3's kernels;
 * the LSTM's fused route (one cuDNN call per layer, packed ragged batches)
   held to its loop over frames at the independent LAS encoder's shape (16 x
   400 x 120, 3 bidirectional layers of 256), the probe's (16 x 198 x 120,
@@ -499,6 +500,9 @@ PRUNED_RANGE, PRUNED_WARM_SCALE, PRUNED_RTOL = 5, 0.1, 1e-4
 BENCH_CLI_UTTS = 64
 TOOL_GAP = 0.15
 TRACE_KERNELS = {"K1": "lse_kernel", "K2": "dh_kernel", "K3": "dw_kernel"}
+# the spans of a float32 training step (utils/profiling.py)
+TRAIN_SPANS = ("train.step", "features", "encoder", "prediction_net", "loss.k1", "loss.alpha",
+               "train.backward", "loss.occupancy", "loss.k23", "optimizer")
 # published H100 SXM peaks: float32 outside the tensor cores, bf16 dense,
 # HBM bytes per second
 PEAK_F32, PEAK_BF16, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -2303,8 +2307,9 @@ def trace_kernel_label(name: str) -> str:
 def trace_bench_step(device, work: str) -> None:
     """One step of bench_train's (its model, featurizer, optimizer, batch)
     traced through ``utils/profiling.trace`` after a warm step: the Chrome
-    trace must hold the ``annotate`` regions and a kernel of each of K1-K3
-    under the label ``kernel_label`` gives it in the build log."""
+    trace must hold the ``span`` regions, the step's own spans and a kernel
+    of each of K1-K3 under the label ``kernel_label`` gives it in the build
+    log."""
     cfg, feat_cfg, _ = bench_train.config({}, device)
     _, step = bench_train.make_step(cfg, feat_cfg, device)
     batch = bench_train.make_batch(TRAIN_BATCH, feat_cfg.max_samples, VOCAB, device)
@@ -2314,9 +2319,9 @@ def trace_bench_step(device, work: str) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profiling.trace(logdir):
-        with profiling.annotate("bench_train_step"):
+        with profiling.span("bench_train_step"):
             loss = step(batch, gen)["loss"]
-        with profiling.annotate("bench_train_loss_read"):
+        with profiling.span("bench_train_loss_read"):
             loss = loss.item()
     wall = time.perf_counter() - t0
     files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
@@ -2333,6 +2338,7 @@ def trace_bench_step(device, work: str) -> None:
         f"{os.path.getsize(files[0]) / 2**20:.1f} MiB, {len(events)} events, "
         f"{len(kernels)} distinct kernels")
     check({"bench_train_step", "bench_train_loss_read"} <= names, "the trace holds the annotations")
+    check(set(TRAIN_SPANS) <= names, f"the trace holds the step's spans: {sorted(TRAIN_SPANS)}")
     for k, base in TRACE_KERNELS.items():
         labels = [x for x in built if x.split("<")[0] == base]
         seen = sorted(set(labels) & kernels)

@@ -19,6 +19,7 @@ from typing import Callable, Dict
 import torch
 
 from pika_tpu_torch.models.transducer import Transducer
+from pika_tpu_torch.utils.profiling import span
 
 # replays between two reads of the device flag (chip_smoke.py times the
 # flagship beam search at 1, 4, 16 and 64)
@@ -79,19 +80,24 @@ class DecodeLoop:
 
     def run(self, graphed: bool, steps_per_check: int, *inputs) -> None:
         """Reset to ``inputs`` and run to the end: replays of the graph
-        (captured on first use) when ``graphed``, else the eager body."""
+        (captured on first use) when ``graphed``, else the eager body.  The
+        span ``decode.loop`` holds it all, ``decode.flag_read`` each read of
+        the device flag."""
         if steps_per_check < 1:
             raise ValueError(f"steps_per_check must be positive, got {steps_per_check}")
-        self.reset(*inputs)
-        if graphed and self.graph is None:
-            self.capture()
+        with span("decode.loop"):
             self.reset(*inputs)
-        step = self.graph.replay if graphed else self.body
-        for _ in range(-(-self.max_bodies // steps_per_check)):
-            for _ in range(steps_per_check):
-                step()
-            if not bool(self.state["running"]):
-                return
+            if graphed and self.graph is None:
+                self.capture()
+                self.reset(*inputs)
+            step = self.graph.replay if graphed else self.body
+            for _ in range(-(-self.max_bodies // steps_per_check)):
+                for _ in range(steps_per_check):
+                    step()
+                with span("decode.flag_read"):
+                    running = bool(self.state["running"])
+                if not running:
+                    return
         raise RuntimeError(f"decode loop still running after {self.max_bodies} steps")
 
 

@@ -48,6 +48,7 @@ from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.models.conv_transformer_lm import ConvTransformerLM
 from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
+from pika_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,9 +122,10 @@ class Transducer(nn.Module):
         (outputs 0 past each length); the TDNN encoder sees the padded
         frames, as the JAX encoder does.  Train mode draws dropout masks
         from ``generator``."""
-        if self.config.encoder_type == "rnn":
-            return self.encoder(x, generator, lengths=x_len)[0]
-        return self.encoder(x, generator=generator)
+        with span("encoder"):
+            if self.config.encoder_type == "rnn":
+                return self.encoder(x, generator, lengths=x_len)[0]
+            return self.encoder(x, generator=generator)
 
     def encoder_out_len(self, x_len):
         if self.config.encoder_type == "rnn":
@@ -136,16 +138,17 @@ class Transducer(nn.Module):
         Positions at or past ``y_len + 1`` take the padding embedding row
         (and the transformer net's key mask).  Train mode drops out with
         masks from ``generator``."""
-        pad_id = self.config.pad_id
-        y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
-        pad_pos = None
-        if y_len is not None:
-            pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
-            y_in = torch.where(pad_pos, pad_id, y_in)
-        emb = self.embed(y_in.clamp(0, pad_id).long())
-        if self.config.decoder_type == "rnn":
-            return self.decoder(emb, generator)[0]
-        return self.decoder(emb, pad_positions=pad_pos, generator=generator)
+        with span("prediction_net"):
+            pad_id = self.config.pad_id
+            y_in = nn.functional.pad(y, (1, 0))  # SOS = blank = 0
+            pad_pos = None
+            if y_len is not None:
+                pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
+                y_in = torch.where(pad_pos, pad_id, y_in)
+            emb = self.embed(y_in.clamp(0, pad_id).long())
+            if self.config.decoder_type == "rnn":
+                return self.decoder(emb, generator)[0]
+            return self.decoder(emb, pad_positions=pad_pos, generator=generator)
 
     def predict_step(self, y_tok: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
         """One incremental step of the LSTM prediction net: y_tok (B,),

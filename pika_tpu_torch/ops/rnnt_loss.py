@@ -24,6 +24,7 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_reference,
     joint_channels_reference,
 )
+from pika_tpu_torch.utils.profiling import span
 
 NEG = -1e30
 
@@ -167,17 +168,19 @@ class RNNTLossFused(torch.autograd.Function):
             raise ValueError(f"unknown loss backend {backend!r}")
         b = labels.shape[0]
         labels_ext = _labels_ext(labels, w2.shape[1])
-        if backend == "auto":
-            lse, zb, zy = joint_channels(ax, gx, ay, gy, w2, b2, labels_ext)
-        else:
-            lse, zb, zy = joint_channels_reference(ax, gx, ay, gy, w2, b2, labels_ext, chunk,
-                                                   plain_mm_dtype(ax.device))
-        blank_lp = zb - lse
-        alpha = rnnt_alpha(blank_lp, zy - lse, u_len)
-        bi = torch.arange(b, device=alpha.device)
-        tl = torch.clamp(t_len, min=1).long() - 1
-        ul = u_len.long()
-        loss = -(alpha[bi, tl, ul] + blank_lp[bi, tl, ul])
+        with span("loss.k1"):
+            if backend == "auto":
+                lse, zb, zy = joint_channels(ax, gx, ay, gy, w2, b2, labels_ext)
+            else:
+                lse, zb, zy = joint_channels_reference(ax, gx, ay, gy, w2, b2, labels_ext, chunk,
+                                                       plain_mm_dtype(ax.device))
+        with span("loss.alpha"):
+            blank_lp = zb - lse
+            alpha = rnnt_alpha(blank_lp, zy - lse, u_len)
+            bi = torch.arange(b, device=alpha.device)
+            tl = torch.clamp(t_len, min=1).long() - 1
+            ul = u_len.long()
+            loss = -(alpha[bi, tl, ul] + blank_lp[bi, tl, ul])
         ctx.chunk, ctx.backend = chunk, backend
         ctx.save_for_backward(ax, gx, ay, gy, w2, b2, labels_ext, t_len, u_len,
                               lse, zb, zy, alpha)
@@ -186,17 +189,20 @@ class RNNTLossFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss):
         ax, gx, ay, gy, w2, b2, labels_ext, t_len, u_len, lse, zb, zy, alpha = ctx.saved_tensors
-        g_blank, g_emit = rnnt_occupancy(zb - lse, zy - lse, t_len, u_len, alpha=alpha)
-        # the channel cotangents of L = f(zb - lse, zy - lse), per utterance
-        d_zb = (g_blank * g_loss[:, None, None]).contiguous()
-        d_zy = (g_emit * g_loss[:, None, None]).contiguous()
-        d_lse = -(d_zb + d_zy)
-        if ctx.backend == "auto":
-            grads = joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb, d_zy)
-        else:
-            grads = joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse,
-                                                 d_lse, d_zb, d_zy, ctx.chunk,
-                                                 plain_mm_dtype(ax.device))
+        with span("loss.occupancy"):
+            g_blank, g_emit = rnnt_occupancy(zb - lse, zy - lse, t_len, u_len, alpha=alpha)
+            # the channel cotangents of L = f(zb - lse, zy - lse), per utterance
+            d_zb = (g_blank * g_loss[:, None, None]).contiguous()
+            d_zy = (g_emit * g_loss[:, None, None]).contiguous()
+            d_lse = -(d_zb + d_zy)
+        with span("loss.k23"):
+            if ctx.backend == "auto":
+                grads = joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb,
+                                           d_zy)
+            else:
+                grads = joint_channels_bwd_reference(ax, gx, ay, gy, w2, b2, labels_ext, lse,
+                                                     d_lse, d_zb, d_zy, ctx.chunk,
+                                                     plain_mm_dtype(ax.device))
         return (*grads, None, None, None, None, None)
 
 

@@ -43,6 +43,7 @@ from pika_tpu_torch.models.transducer import Transducer
 from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
 from pika_tpu_torch.ops.rnnt_pruned import prune_ranges, rnnt_loss_pruned, rnnt_loss_simple
 from pika_tpu_torch.train.lr import Optimizer
+from pika_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,14 +74,15 @@ def make_featurizer(cfg: FeaturizerConfig, cmvn_offset: Optional[torch.Tensor] =
     fbank = make_fbank_fn(cfg.fbank, cfg.max_samples, device=device)
 
     def featurize(wavs, wav_lens, generator: Optional[torch.Generator] = None):
-        feats, frame_lens = fbank(wavs.float(), wav_lens, generator=generator)
-        feats = stride_subsample(splice(feats, cfg.lctx, cfg.rctx, frame_lens=frame_lens),
-                                 cfg.stride)
-        feat_lens = strided_len(frame_lens, cfg.stride)
-        if cmvn_offset is not None:
-            feats = apply_cmvn(feats, cmvn_offset, cmvn_scale, cmn=cfg.cmn)
-        if cfg.spec_augment and generator is not None:
-            feats = spec_augment(feats, cfg.max_freq_span, cfg.max_time_span, generator)
+        with span("features"):
+            feats, frame_lens = fbank(wavs.float(), wav_lens, generator=generator)
+            feats = stride_subsample(splice(feats, cfg.lctx, cfg.rctx, frame_lens=frame_lens),
+                                     cfg.stride)
+            feat_lens = strided_len(frame_lens, cfg.stride)
+            if cmvn_offset is not None:
+                feats = apply_cmvn(feats, cmvn_offset, cmvn_scale, cmn=cfg.cmn)
+            if cfg.spec_augment and generator is not None:
+                feats = spec_augment(feats, cfg.max_freq_span, cfg.max_time_span, generator)
         return feats, feat_lens
 
     return featurize
@@ -197,16 +199,20 @@ def make_train_step(model: Transducer, optimizer: Optimizer, featurizer: Callabl
         was_training = model.training
         model.train()
         try:
-            feats, feat_lens = featurizer(*batch_inputs(batch), generator)
-            args = (feat_lens, batch["labels"], batch["label_lens"], loss_chunk, loss_backend,
-                    generator, pruned_range, simple_scale, pruned_scale)
-            optimizer.zero_grad()
-            if compute_dtype is None or compute_dtype == torch.float32:
-                loss = transducer_loss(model, feats, *args)
-                loss.backward()
-            else:
-                loss = loss_and_backward_cast(model, compute_dtype, feats, *args)
-            optimizer.step()
+            with span("train.step"):
+                feats, feat_lens = featurizer(*batch_inputs(batch), generator)
+                args = (feat_lens, batch["labels"], batch["label_lens"], loss_chunk, loss_backend,
+                        generator, pruned_range, simple_scale, pruned_scale)
+                with span("optimizer"):
+                    optimizer.zero_grad()
+                if compute_dtype is None or compute_dtype == torch.float32:
+                    loss = transducer_loss(model, feats, *args)
+                    with span("train.backward"):
+                        loss.backward()
+                else:
+                    loss = loss_and_backward_cast(model, compute_dtype, feats, *args)
+                with span("optimizer"):
+                    optimizer.step()
         finally:
             model.train(was_training)
         return {"loss": loss.detach(), "num_labels": batch["label_lens"].sum(),

@@ -3,9 +3,20 @@
 ``trace(logdir)`` wraps a code block in ``torch.profiler`` (CPU and CUDA
 activities) and writes a Chrome trace into ``logdir`` (view it in
 ``chrome://tracing``, Perfetto or TensorBoard's PyTorch plugin);
-``annotate(name)`` adds a named region to the trace (and an NVTX range on the
-card); ``StepTimer`` gives wall-clock per-step stats with correct device
-syncing.
+``span(name)`` names a region of the program in that trace; ``StepTimer``
+gives wall-clock per-step stats with correct device syncing.
+
+Spans are on exactly while a ``torch.profiler`` runs (``trace`` here, or the
+benchmark's traced stretches): a ``record_function`` range, which lands in
+the host trace and, on the card, as a device-side user annotation over the
+kernels launched inside it.  With no profiler running a span costs one
+flag check.  A count is the number of spans of one name in the trace.
+
+The spans of the port: ``features`` (the featurizer), ``encoder``,
+``prediction_net``, ``loss.k1``, ``loss.alpha``, ``loss.occupancy``,
+``loss.k23`` (``ops/rnnt_loss.py``), ``train.step``, ``train.backward``,
+``optimizer`` (``train/step.py``), ``decode.loop`` and
+``decode.flag_read`` (``decode/loop.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +26,10 @@ import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 from torch.utils._pytree import tree_leaves
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -32,15 +46,14 @@ def trace(logdir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named trace region: ``with annotate("beam_search"): ...``"""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+def span(name: str):
+    """Named region of the program: ``with span("encoder"): ...``; a
+    ``record_function`` range while a profiler runs, else a shared null
+    context.  Never inside a captured CUDA graph's body: it would run only
+    at capture."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

@@ -53,7 +53,7 @@ from pika_tpu_torch.models.transducer import TransducerConfig, init_transducer
 from pika_tpu_torch.tools import bench_cli_train, bench_decode, bench_train
 import pika_tpu_torch.train.train_transducer as train_cli
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer
-from pika_tpu_torch.utils.profiling import StepTimer, annotate, trace
+from pika_tpu_torch.utils.profiling import StepTimer, span, trace
 
 torch.set_num_threads(1)
 
@@ -114,17 +114,20 @@ def test_step_timer_stop_takes_a_nest_of_tensors():
 
 
 def test_trace_writes_annotations(tmp_path):
-    """``trace`` on the CPU writes a Chrome trace that holds the
-    ``annotate`` regions."""
+    """``trace`` on the CPU writes a Chrome trace that holds the ``span``
+    regions opened under it; a span opened before it holds nothing."""
+    before = span("bench_tools_region")
     with trace(str(tmp_path)) as prof:
-        with annotate("bench_tools_region"):
+        with before:
+            torch.randn(8, 8)
+        with span("bench_tools_region"):
             torch.randn(64, 64) @ torch.randn(64, 64)
     files = glob.glob(str(tmp_path / "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "bench_tools_region" in names
-    assert any(e.key == "bench_tools_region" for e in prof.key_averages())
+    assert [e.count for e in prof.key_averages() if e.key == "bench_tools_region"] == [1]
 
 
 # ---------------------------------------------------------------------------
