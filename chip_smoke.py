@@ -34,11 +34,13 @@ V=6268, random weights from a seed):
   walk searches are profiled after every other phase;
 * the training path: ``bench.py``'s step on 32 utterances of 10 s with 40
   labels -- dither 1.0, SpecAugment, dropout 0.2, the loss through K1
-  forward and K2/K3 backward (bf16 products, z once per backward), inf-norm clipping
-  at 3, SGD-Nesterov -- one
-  warm-up step, then 3 timed steps from one seeded generator, a profiled
-  step, and one step each on the kernel and the plain loss backends from
-  the same weights and seed, which must agree;
+  forward and K2/K3 backward (bf16 products, z once per backward) and the
+  loss DP's two kernels, inf-norm clipping at 3, SGD-Nesterov -- one
+  warm-up step, then 3 timed steps from one seeded generator; the DP
+  kernels at that shape against the plain row loops (both timed); a
+  profiled step that launches each of K1-K3 and the DP kernels once; and
+  one step each on the kernel and the plain loss backends from the same
+  weights and seed, which must agree;
 * the training CLI (``train/train_transducer.py``) in process
   on a seeded synthetic corpus (64 training and 16 validation utterances
   of 2-12 s written by ``python -m pika_tpu_torch.data.prep wav_to_seq``,
@@ -233,7 +235,10 @@ from pika_tpu_torch.ops.rnnt_kernels import (
 )
 from pika_tpu_torch.ops import rnnt_loss
 from pika_tpu_torch.ops.rnnt_loss import (
-    rnnt_alpha,
+    dp_backward,
+    dp_backward_reference,
+    dp_forward,
+    dp_forward_reference,
     rnnt_loss_forward,
     rnnt_loss_fused,
     rnnt_loss_numpy,
@@ -888,10 +893,12 @@ def dp_seconds(fn, repeats: int = 3) -> float:
     return statistics.median(times[1:])
 
 
-def train_path(device) -> tuple[dict, float]:
+def train_path(device) -> tuple[dict, float, dict]:
     """bench.py's training step at flagship width: one warm-up step, then
-    TIMED_STEPS steps from one seeded generator.  Returns the launches of
-    K1, K2 and K3 over the timed steps, and the median step time."""
+    TIMED_STEPS steps from one seeded generator, the loss DP's kernels at
+    its shape (``dp_path``) and a profiled step.  Returns the launches of
+    K1, K2, K3 and the DP kernels over the timed steps, the median step
+    time and the DP kernels' rows of the summary."""
     t0 = time.perf_counter()
     batch = flagship_batch(device, TRAIN_BATCH)
     model, step = train_setup(device, batch)
@@ -905,14 +912,13 @@ def train_path(device) -> tuple[dict, float]:
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     torch.cuda.reset_peak_memory_stats(device)
-    joint_channels.launches = joint_channels_bwd_in.launches = joint_channels_bwd_w.launches = 0
+    reset_launches()
     times, losses = [], []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         losses.append(step(batch, gen)["loss"].item())  # .item() waits for the step
         times.append(time.perf_counter() - t0)
-    launches = {"K1": joint_channels.launches, "K2": joint_channels_bwd_in.launches,
-                "K3": joint_channels_bwd_w.launches}
+    launches = {**joint_launches(), "DP fwd": dp_forward.launches, "DP bwd": dp_backward.launches}
     peak = torch.cuda.max_memory_allocated(device)
     step_s = statistics.median(times)
     say(f"train steps (K1 fwd, K2/K3 bwd), batch {TRAIN_BATCH} x {SECONDS} s: "
@@ -920,29 +926,69 @@ def train_path(device) -> tuple[dict, float]:
         f"({TRAIN_BATCH / step_s:.2f} utt/s); losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"peak memory {peak / 2**30:.3f} GiB; launches {launches}")
     check(all(math.isfinite(x) for x in losses), f"train losses finite: {losses}")
-    check(all(n > 0 for n in launches.values()), f"the train steps launched K1, K2, K3: {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"the train steps launched K1, K2, K3 and the DP kernels: {launches}")
     changed = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
     check(changed == len(before), f"{changed} of {len(before)} parameters changed")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "parameters finite")
     say(f"train: all {changed} parameter tensors changed and finite: ok")
 
-    # the loss DP loops at this shape: T' host-driven steps of small ops each
-    t_out = model.encoder_out_len(1 + (SR * SECONDS - 400) // 160)  # 25 ms frames, 10 ms hop
-    g = torch.Generator(device).manual_seed(2)
-    lp = -torch.rand((TRAIN_BATCH, t_out, U_MAX + 1), generator=g, device=device) * 5 - 0.1
-    lens_t = torch.full((TRAIN_BATCH,), t_out, device=device)
-    lens_u = torch.full((TRAIN_BATCH,), U_MAX, device=device)
-    alpha = rnnt_alpha(lp, lp, lens_u)
-    alpha_s = dp_seconds(lambda: rnnt_alpha(lp, lp, lens_u))
-    occ_s = dp_seconds(lambda: rnnt_occupancy(lp, lp, lens_t, lens_u, alpha=alpha))
-    say(f"loss DP at T'={t_out}, U+1={U_MAX + 1}: forward alpha loop {alpha_s * 1e3:.2f} ms "
-        f"({alpha_s / step_s:.2%} of the step), backward beta loop + occupancy "
-        f"{occ_s * 1e3:.2f} ms ({occ_s / step_s:.2%} of the step)")
+    dp = dp_path(device, model.encoder_out_len(1 + (SR * SECONDS - 400) // 160), step_s)
 
+    reset_launches()
     profile(lambda: step(batch, gen)["loss"].item(), "train step")
+    traced = {**joint_launches(), "DP fwd": dp_forward.launches, "DP bwd": dp_backward.launches}
+    say(f"traced train step launches: {traced}")
+    check(set(traced.values()) == {1}, f"the traced step launched each kernel once: {traced}")
     del model, step, before
     torch.cuda.empty_cache()
-    return launches, step_s
+    return launches, step_s, dp
+
+
+def dp_path(device, t_out: int, step_s: float) -> dict:
+    """The loss DP at the training cell's shape (TRAIN_BATCH x t_out x
+    U_MAX + 1, ragged lengths): the two kernels against the plain row loops
+    on the card (the tolerances of tests/test_torch_gpu.py), timed by CUDA
+    events, beside the loops' host-clock time; returns the kernels' rows of
+    the summary."""
+    g = torch.Generator(device).manual_seed(2)
+    shape = (TRAIN_BATCH, t_out, U_MAX + 1)
+    blank, emit = (-torch.rand(shape, generator=g, device=device) * 5 - 0.1 for _ in range(2))
+    t_len, u_len = (torch.tensor(x, device=device) for x in ragged_lengths(*shape))
+    g_loss = torch.ones(TRAIN_BATCH, device=device)
+    loss, alpha = dp_forward(blank, emit, t_len, u_len)
+    grads = dp_backward(blank, emit, t_len, u_len, alpha, loss, g_loss)
+    ref_loss, ref_alpha = dp_forward_reference(blank, emit, t_len, u_len)
+    ref_grads = dp_backward_reference(blank, emit, t_len, u_len, ref_alpha, ref_loss, g_loss)
+    valid = ((torch.arange(t_out, device=device)[None, :, None] < t_len[:, None, None])
+             & (torch.arange(U_MAX + 1, device=device)[None, None, :] <= u_len[:, None, None]))
+    loss_err = ((loss - ref_loss).abs() / ref_loss.abs()).max().item()
+    alpha_err = ((alpha - ref_alpha).abs() / ref_alpha.abs().clamp(min=1))[valid].max().item()
+    grad_err = max((a - r).abs().max().item() for a, r in zip(grads, ref_grads))
+    check(loss_err <= 1e-5 and alpha_err <= 1e-5 and grad_err <= 2e-3,
+          f"loss DP kernels vs plain loops: loss {loss_err}, alpha {alpha_err}, "
+          f"cotangents {grad_err}")
+    fwd_ms = time_ms(lambda: dp_forward(blank, emit, t_len, u_len), warmup=3, iters=50)
+    bwd_ms = time_ms(lambda: dp_backward(blank, emit, t_len, u_len, alpha, loss, g_loss),
+                     warmup=3, iters=50)
+    plain_fwd_s = dp_seconds(lambda: dp_forward_reference(blank, emit, t_len, u_len))
+    plain_bwd_s = dp_seconds(lambda: dp_backward_reference(blank, emit, t_len, u_len, alpha,
+                                                           loss, g_loss))
+    cells = math.prod(shape)
+    # bytes: the forward reads two channels and writes alpha; the backward
+    # reads two channels and alpha and writes three cotangents
+    fwd_bound, bwd_bound = bound(0, 3 * 4 * cells, PEAK_F32), bound(0, 6 * 4 * cells, PEAK_F32)
+    say(f"loss DP at T'={t_out}, U+1={U_MAX + 1} (batch {TRAIN_BATCH}, ragged): kernels vs "
+        f"plain loops: loss rel {loss_err:.2e}, alpha rel {alpha_err:.2e}, cotangents abs "
+        f"{grad_err:.2e}: ok; forward kernel {fwd_ms:.3f} ms, backward kernel {bwd_ms:.3f} ms "
+        f"(bytes bound {fwd_bound['bound_ms'] * 1e3:.2f} and {bwd_bound['bound_ms'] * 1e3:.2f} us; "
+        f"the chain: {t_out} dependent rows each way); plain loops: forward "
+        f"{plain_fwd_s * 1e3:.2f} ms ({plain_fwd_s / step_s:.2%} of the step), backward "
+        f"{plain_bwd_s * 1e3:.2f} ms ({plain_bwd_s / step_s:.2%})")
+    return {"fwd": {"max_abs_err": alpha_err, "ms": fwd_ms, "plain_ms": plain_fwd_s * 1e3,
+                    **fwd_bound, "library_ms": None},
+            "bwd": {"max_abs_err": grad_err, "ms": bwd_ms, "plain_ms": plain_bwd_s * 1e3,
+                    **bwd_bound, "library_ms": None}}
 
 
 def write_cli_corpus(work: str, device) -> dict:
@@ -1971,8 +2017,8 @@ def k4_d256_times(device, sdpa) -> None:
 
 
 def reset_launches() -> None:
-    for fn in (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w, flash_attention_fwd,
-               flash_attention_bwd_dkv, flash_attention_bwd_dq):
+    for fn in (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w, dp_forward,
+               dp_backward, flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
         fn.launches = 0
 
 
@@ -3665,7 +3711,7 @@ def main() -> int:
         f"{(torch.cuda.memory_allocated(device) - held) / 2**20:+.1f} MiB")
     long_utterances(device)
     small_heads_path(device)
-    launches, full_step_s = train_path(device)
+    launches, full_step_s, dp = train_path(device)
     cli_launches, cli_paths, cli_epochs = train_cli_path(device, os.path.join(work, "train_cli"))
     mbr_launches = mbr_path(device, cli_paths)
     las_path(device, cli_paths)
@@ -3698,6 +3744,12 @@ def main() -> int:
         {"name": "joint_channels_bwd_w", "route": "cuda",
          "source": "pika_tpu_torch/csrc/joint_bwd.cu",
          "replaces": "pika_tpu/ops/rnnt_pallas.py:284", "launches": launches["K3"], **k3},
+        {"name": "rnnt_dp_forward", "route": "cuda", "source": "pika_tpu_torch/csrc/rnnt_dp.cu",
+         "replaces": "none (pika_tpu/ops/rnnt_loss.py:rnnt_alpha, a lax.scan)",
+         "launches": launches["DP fwd"], **dp["fwd"]},
+        {"name": "rnnt_dp_backward", "route": "cuda", "source": "pika_tpu_torch/csrc/rnnt_dp.cu",
+         "replaces": "none (pika_tpu/ops/rnnt_loss.py:rnnt_beta, a lax.scan)",
+         "launches": launches["DP bwd"], **dp["bwd"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "pika_tpu_torch/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "

@@ -1,6 +1,7 @@
 """RNN-T loss, the fused joint-channel kernels K1 (forward), K2 and K3
-(backward), the flash-attention kernel K4 (forward and backward), the
-pruned RNN-T loss, and the batched edit distance of the MBR step."""
+(backward), the loss DP's kernels (forward and backward), the
+flash-attention kernel K4 (forward and backward), the pruned RNN-T loss,
+and the batched edit distance of the MBR step."""
 
 from pika_tpu_torch.ops.edit_distance import edit_distance_batch
 from pika_tpu_torch.ops.flash_attention import (
@@ -24,6 +25,10 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_reference,
 )
 from pika_tpu_torch.ops.rnnt_loss import (
+    dp_backward,
+    dp_backward_reference,
+    dp_forward,
+    dp_forward_reference,
     rnnt_alpha,
     rnnt_beta,
     rnnt_loss_forward,

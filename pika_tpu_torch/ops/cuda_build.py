@@ -104,6 +104,10 @@ def library() -> ctypes.CDLL:
     lib.pika_flash_attention_bwd_dkv.restype = i
     lib.pika_flash_attention_bwd_dq.argtypes = [i, p] + [p] * 7 + [i] * 3
     lib.pika_flash_attention_bwd_dq.restype = i
+    lib.pika_rnnt_dp_forward.argtypes = [i, p] + [p] * 6 + [i] * 3
+    lib.pika_rnnt_dp_forward.restype = i
+    lib.pika_rnnt_dp_backward.argtypes = [i, p] + [p] * 10 + [i] * 3
+    lib.pika_rnnt_dp_backward.restype = i
     lib.pika_cuda_error_string.argtypes = [i]
     lib.pika_cuda_error_string.restype = ctypes.c_char_p
     return lib

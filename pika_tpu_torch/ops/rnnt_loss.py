@@ -7,9 +7,13 @@ DP convention (blank = 0):
     loss_b      = -(alpha[T_b-1, U_b] + blank(T_b-1, U_b))
 
 ``RNNTLossFused`` is the port of the ``custom_vjp`` of ``rnnt_loss_fused``:
-its forward is K1 (``joint_channels``) plus ``rnnt_alpha``; its backward is
-``rnnt_occupancy`` (``rnnt_beta`` plus the posterior of each lattice arc),
-the channel cotangents, and K2/K3 (``joint_channels_bwd``).
+its forward is K1 (``joint_channels``) plus the DP's forward (``dp_forward``:
+alpha and the loss); its backward is the DP's backward (``dp_backward``:
+beta, the posterior of each lattice arc and the channel cotangents) and
+K2/K3 (``joint_channels_bwd``).  On CUDA tensors ``dp_forward`` and
+``dp_backward`` are one launch each of ``csrc/rnnt_dp.cu``; their plain
+versions, ``dp_forward_reference`` and ``dp_backward_reference``, loop over
+the T rows (``rnnt_alpha``, ``rnnt_beta``, ``rnnt_occupancy``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pika_tpu_torch.ops import cuda_build
 from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels,
     joint_channels_bwd,
@@ -144,6 +149,108 @@ def rnnt_occupancy(blank_lp, emit_lp, t_len, u_len, alpha=None):
     return g_blank, g_emit
 
 
+def dp_forward_reference(blank_lp, emit_lp, t_len, u_len):
+    """The plain version of ``dp_forward``: ``rnnt_alpha``'s row loop and
+    the loss gathered from it."""
+    alpha = rnnt_alpha(blank_lp, emit_lp, u_len)
+    bi = torch.arange(alpha.shape[0], device=alpha.device)
+    tl = torch.clamp(t_len, min=1).long() - 1
+    ul = u_len.long()
+    loss = -(alpha[bi, tl, ul] + blank_lp[bi, tl, ul])
+    return torch.where(t_len > 0, loss, torch.zeros_like(loss)), alpha
+
+
+def dp_backward_reference(blank_lp, emit_lp, t_len, u_len, alpha, loss, g_loss):
+    """The plain version of ``dp_backward``: ``rnnt_occupancy`` (the beta
+    loop; it takes the log-likelihood from alpha, which is ``-loss`` where
+    ``t_len > 0``, so ``loss`` is not read) scaled by ``g_loss``."""
+    g_blank, g_emit = rnnt_occupancy(blank_lp, emit_lp, t_len, u_len, alpha=alpha)
+    # the channel cotangents of L = f(zb - lse, zy - lse), per utterance
+    d_zb = (g_blank * g_loss[:, None, None]).contiguous()
+    d_zy = (g_emit * g_loss[:, None, None]).contiguous()
+    return d_zb, d_zy, -(d_zb + d_zy)
+
+
+def _dp_inputs(what, lattices: dict, per_utt: dict, t_len, u_len):
+    """Raise unless the (B, T, U+1) float32 ``lattices`` and (B,) float32
+    ``per_utt`` are contiguous on one CUDA device with integer (B,) lengths;
+    returns (B, T, U1) and the lengths as int32 (a device cast: no sync)."""
+    first = next(iter(lattices.values()))
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    b, t, u1 = first.shape
+    expect = {**{n: (x, (b, t, u1)) for n, x in lattices.items()},
+              **{n: (x, (b,)) for n, x in per_utt.items()}}
+    for name, (x, shape) in expect.items():
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{what}: {name} must be float32 {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    for name, x in (("t_len", t_len), ("u_len", u_len)):
+        if x.device != dev or x.dtype.is_floating_point or tuple(x.shape) != (b,):
+            raise ValueError(f"{what}: {name} must be integer ({b},) on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return (b, t, u1), t_len.to(torch.int32).contiguous(), u_len.to(torch.int32).contiguous()
+
+
+def dp_forward(blank_lp, emit_lp, t_len, u_len):
+    """``(loss, alpha)``: the per-utterance loss (B,), exactly 0 where
+    ``t_len <= 0``, and alpha (B, T, U+1), from the channel log-probs
+    ``blank_lp``, ``emit_lp`` (B, T, U+1) float32 and the lengths (B,).  On
+    CUDA tensors one launch of ``csrc/rnnt_dp.cu``'s forward (alpha is NEG
+    in rows t >= t_len, which nothing reads; lengths past the lattice are
+    clamped into it); on CPU tensors ``dp_forward_reference``."""
+    if blank_lp.device.type == "cpu":
+        return dp_forward_reference(blank_lp, emit_lp, t_len, u_len)
+    (b, t, u1), t32, u32 = _dp_inputs("dp_forward", {"blank_lp": blank_lp, "emit_lp": emit_lp},
+                                      {}, t_len, u_len)
+    dev = blank_lp.device
+    alpha = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
+    loss = torch.empty(b, dtype=torch.float32, device=dev)
+    if alpha.numel() == 0:
+        return loss.zero_(), alpha
+    rc = cuda_build.library().pika_rnnt_dp_forward(
+        dev.index, torch.cuda.current_stream(dev).cuda_stream, blank_lp.data_ptr(),
+        emit_lp.data_ptr(), t32.data_ptr(), u32.data_ptr(), alpha.data_ptr(), loss.data_ptr(),
+        b, t, u1)
+    cuda_build.check(rc, f"dp_forward launch (B={b}, T={t}, U1={u1})")
+    dp_forward.launches += 1
+    return loss, alpha
+
+
+def dp_backward(blank_lp, emit_lp, t_len, u_len, alpha, loss, g_loss):
+    """``(d_zb, d_zy, d_lse)``, each (B, T, U+1) float32: the cotangents of
+    K1's channels given the loss's cotangent ``g_loss`` (B,), from the
+    inputs and outputs of ``dp_forward``; exact zeros outside each
+    utterance's lattice.  On CUDA tensors one launch of
+    ``csrc/rnnt_dp.cu``'s backward (beta is never written); on CPU tensors
+    ``dp_backward_reference``."""
+    if blank_lp.device.type == "cpu":
+        return dp_backward_reference(blank_lp, emit_lp, t_len, u_len, alpha, loss, g_loss)
+    g_loss = g_loss.contiguous()  # the backward of a sum hands an expanded one
+    (b, t, u1), t32, u32 = _dp_inputs(
+        "dp_backward", {"blank_lp": blank_lp, "emit_lp": emit_lp, "alpha": alpha},
+        {"loss": loss, "g_loss": g_loss}, t_len, u_len)
+    outs = [torch.empty((b, t, u1), dtype=torch.float32, device=blank_lp.device)
+            for _ in range(3)]
+    if outs[0].numel() == 0:
+        return tuple(outs)
+    dev = blank_lp.device
+    rc = cuda_build.library().pika_rnnt_dp_backward(
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        *(x.data_ptr() for x in (blank_lp, emit_lp, alpha, loss, g_loss, t32, u32, *outs)),
+        b, t, u1)
+    cuda_build.check(rc, f"dp_backward launch (B={b}, T={t}, U1={u1})")
+    dp_backward.launches += 1
+    return tuple(outs)
+
+
+dp_forward.launches = 0
+dp_backward.launches = 0
+
+
 def plain_mm_dtype(device: torch.device) -> torch.dtype:
     """The matmul dtype of the plain loss backend on ``device``: bf16 on the
     card, as the kernels (and the JAX package's pallas backend on its chip)
@@ -159,14 +266,14 @@ def _labels_ext(labels, vocab):
 
 class RNNTLossFused(torch.autograd.Function):
     """Per-utterance loss (B,) through the fused joint; differentiable in
-    ax, gx, ay, gy, w2 and b2.  The forward saves the channels and alpha
-    (as ``_fused_fwd`` does), never the (B, T, U+1, V) logits."""
+    ax, gx, ay, gy, w2 and b2.  The forward saves lse, the channel
+    log-probs, alpha and the loss (as ``_fused_fwd`` saves the channels and
+    alpha), never the (B, T, U+1, V) logits."""
 
     @staticmethod
     def forward(ctx, ax, gx, ay, gy, w2, b2, labels, t_len, u_len, chunk, backend):
         if backend not in ("auto", "plain"):
             raise ValueError(f"unknown loss backend {backend!r}")
-        b = labels.shape[0]
         labels_ext = _labels_ext(labels, w2.shape[1])
         with span("loss.k1"):
             if backend == "auto":
@@ -175,26 +282,21 @@ class RNNTLossFused(torch.autograd.Function):
                 lse, zb, zy = joint_channels_reference(ax, gx, ay, gy, w2, b2, labels_ext, chunk,
                                                        plain_mm_dtype(ax.device))
         with span("loss.alpha"):
-            blank_lp = zb - lse
-            alpha = rnnt_alpha(blank_lp, zy - lse, u_len)
-            bi = torch.arange(b, device=alpha.device)
-            tl = torch.clamp(t_len, min=1).long() - 1
-            ul = u_len.long()
-            loss = -(alpha[bi, tl, ul] + blank_lp[bi, tl, ul])
+            blank_lp, emit_lp = zb - lse, zy - lse
+            dp = dp_forward if backend == "auto" else dp_forward_reference
+            loss, alpha = dp(blank_lp, emit_lp, t_len, u_len)
         ctx.chunk, ctx.backend = chunk, backend
         ctx.save_for_backward(ax, gx, ay, gy, w2, b2, labels_ext, t_len, u_len,
-                              lse, zb, zy, alpha)
-        return torch.where(t_len > 0, loss, torch.zeros_like(loss))
+                              lse, blank_lp, emit_lp, alpha, loss)
+        return loss
 
     @staticmethod
     def backward(ctx, g_loss):
-        ax, gx, ay, gy, w2, b2, labels_ext, t_len, u_len, lse, zb, zy, alpha = ctx.saved_tensors
+        (ax, gx, ay, gy, w2, b2, labels_ext, t_len, u_len, lse, blank_lp, emit_lp, alpha,
+         loss) = ctx.saved_tensors
         with span("loss.occupancy"):
-            g_blank, g_emit = rnnt_occupancy(zb - lse, zy - lse, t_len, u_len, alpha=alpha)
-            # the channel cotangents of L = f(zb - lse, zy - lse), per utterance
-            d_zb = (g_blank * g_loss[:, None, None]).contiguous()
-            d_zy = (g_emit * g_loss[:, None, None]).contiguous()
-            d_lse = -(d_zb + d_zy)
+            dp = dp_backward if ctx.backend == "auto" else dp_backward_reference
+            d_zb, d_zy, d_lse = dp(blank_lp, emit_lp, t_len, u_len, alpha, loss, g_loss)
         with span("loss.k23"):
             if ctx.backend == "auto":
                 grads = joint_channels_bwd(ax, gx, ay, gy, w2, b2, labels_ext, lse, d_lse, d_zb,

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions,
-the decode loops' CUDA graphs against their eager loops, the LSTM's fused
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+(K1-K4 and the loss DP's two kernels), the decode loops' CUDA graphs against their eager loops, the LSTM's fused
 route (cuDNN) against its loop over frames, and the pruned training's
 repeat to the bit.
 
@@ -43,7 +43,15 @@ from pika_tpu_torch.ops.rnnt_kernels import (
     joint_channels_bwd_w_reference,
     joint_channels_reference,
 )
-from pika_tpu_torch.ops.rnnt_loss import rnnt_loss_forward, rnnt_loss_fused, rnnt_occupancy
+from pika_tpu_torch.ops.rnnt_loss import (
+    dp_backward,
+    dp_backward_reference,
+    dp_forward,
+    dp_forward_reference,
+    rnnt_loss_forward,
+    rnnt_loss_fused,
+    rnnt_occupancy,
+)
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.ops.rnnt_pruned import (
     gather_rows,
@@ -1015,6 +1023,103 @@ def test_transformer_decoder_graph_matches_eager(cuda_device, mm_dtype):
     assert all(loop.graph is not None for loop in model._decode_loops.values())
 
 
+# ---------------------------------------------------------------------------
+# the loss DP's kernels (csrc/rnnt_dp.cu) against the plain row loops
+# ---------------------------------------------------------------------------
+
+DP_CASES = {  # (T, U+1, t_len, u_len)
+    "ragged": (9, 6, [9, 1, 0, 5], [5, 0, 3, 2]),  # t_len 0 and 1, u_len 0
+    "no_labels": (7, 1, [7, 3], [0, 0]),            # U+1 = 1
+    "one_frame": (1, 5, [1, 1, 0], [4, 2, 1]),      # T = 1
+    "cell": (239, 41, [239, 200, 120, 1], [40, 33, 5, 0]),  # the training cell's T' x (U+1)
+    "u97": (60, 97, [60, 37, 2], [96, 50, 0]),       # four warps
+    "chunked": (20, 1100, [20, 13], [1099, 700]),   # rows wider than a block: two chunks
+}
+# the kernels sum the chain in double and round their outputs to float32;
+# the loops sum in float32 (G + logcumsumexp(f - G)) and lose ulps of their
+# alphas (up to 2,800 nats here) along the chain.  An emulation of the
+# kernels on the CPU parted from the loops by up to 8.2e-7 relative in
+# alpha, 5.5e-7 in the loss, and 6.7e-5 (the cell) and 4.1e-4 (U+1 = 1100)
+# in the cotangents (posteriors times g_loss, |g_loss| <= 1.5): the loops'
+# own error, 6-10x the kernels' against a float64 DP
+DP_RTOL, DP_ATOL = 1e-5, 1e-4
+DP_GRAD_ATOL = 2e-3
+
+
+def _dp_case(device, t, u1, t_len, u_len, seed=0):
+    """Channel log-probs in [-5.1, -0.1] (alphas of a few thousand nats at
+    the widest shape), the lengths and a loss cotangent with negative
+    weights (MBR's)."""
+    g = torch.Generator(device).manual_seed(seed)
+    b = len(t_len)
+    blank, emit = (-torch.rand((b, t, u1), generator=g, device=device) * 5 - 0.1
+                   for _ in range(2))
+    return (blank, emit, torch.tensor(t_len, device=device), torch.tensor(u_len, device=device),
+            torch.linspace(-0.5, 1.5, b, device=device))
+
+
+@pytest.mark.parametrize("case", list(DP_CASES))
+def test_dp_kernels_match_plain_loops(cuda_device, case):
+    """dp_forward and dp_backward (one launch each) against the row loops on
+    the card: alpha and the loss on the valid region (DP_RTOL, DP_ATOL; the
+    loss of an empty utterance exactly 0), the cotangents everywhere
+    (DP_GRAD_ATOL; exact zeros outside the lattice)."""
+    t, u1, t_len, u_len = DP_CASES[case]
+    blank, emit, tl, ul, g_loss = _dp_case(cuda_device, t, u1, t_len, u_len)
+    launches = dp_forward.launches, dp_backward.launches
+    loss, alpha = dp_forward(blank, emit, tl, ul)
+    grads = dp_backward(blank, emit, tl, ul, alpha, loss, g_loss)
+    torch.cuda.synchronize()
+    assert (dp_forward.launches, dp_backward.launches) == (launches[0] + 1, launches[1] + 1)
+    ref_loss, ref_alpha = dp_forward_reference(blank, emit, tl, ul)
+    ref_grads = dp_backward_reference(blank, emit, tl, ul, ref_alpha, ref_loss, g_loss)
+    valid = ((torch.arange(t, device=cuda_device)[None, :, None] < tl[:, None, None])
+             & (torch.arange(u1, device=cuda_device)[None, None, :] <= ul[:, None, None]))
+    torch.testing.assert_close(alpha[valid], ref_alpha[valid], rtol=DP_RTOL, atol=DP_ATOL)
+    torch.testing.assert_close(loss, ref_loss, rtol=DP_RTOL, atol=DP_ATOL)
+    assert not loss[tl <= 0].any()
+    for name, got, ref in zip(("d_zb", "d_zy", "d_lse"), grads, ref_grads):
+        torch.testing.assert_close(got, ref, rtol=0, atol=DP_GRAD_ATOL, msg=name)
+    assert not grads[0][~valid].any() and not grads[2][~valid].any()
+    assert torch.equal(grads[2], -(grads[0] + grads[1]))
+
+
+def test_dp_kernels_rerun_bit_identical(cuda_device):
+    """One block per utterance and no atomics: two launches of each kernel
+    give the same bits."""
+    blank, emit, tl, ul, g_loss = _dp_case(cuda_device, *DP_CASES["cell"], seed=1)
+    runs = []
+    for _ in range(2):
+        loss, alpha = dp_forward(blank, emit, tl, ul)
+        runs.append((loss, alpha, *dp_backward(blank, emit, tl, ul, alpha, loss, g_loss)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_dp_kernels_reject_bad_inputs(cuda_device):
+    blank, emit, tl, ul, g_loss = _dp_case(cuda_device, *DP_CASES["ragged"])
+    with pytest.raises(ValueError, match="emit_lp"):
+        dp_forward(blank, emit.double(), tl, ul)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_forward(blank, emit.transpose(1, 2).contiguous().transpose(1, 2), tl, ul)
+    with pytest.raises(ValueError, match="t_len"):
+        dp_forward(blank, emit, tl.cpu(), ul)
+    loss, alpha = dp_forward(blank, emit, tl, ul)
+    with pytest.raises(ValueError, match="g_loss"):
+        dp_backward(blank, emit, tl, ul, alpha, loss, g_loss[:2])
+
+
+def test_train_step_launches_each_dp_kernel_once(cuda_device):
+    """One "auto" training step (the grammar recipe's model, full loss)
+    launches each of K1, K2, K3 and the two DP kernels once."""
+    counted = (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w, dp_forward,
+               dp_backward)
+    for fn in counted:
+        fn.launches = 0
+    losses, _ = _seeded_training(cuda_device, "recipe", steps=1)
+    assert np.isfinite(losses).all()
+    assert [fn.launches for fn in counted] == [1] * 5
+
+
 # the pruned loss on the card: with the full band it is the fused loss, whose
 # kernels round h, W2 and dz to bf16 (the pruned loss is float32): within
 # BASELINE.md's bf16 envelope
@@ -1227,10 +1332,10 @@ PRUNED_TRAININGS = {
 }
 
 
-def _pruned_training(device, shape: str, steps: int = 3):
-    """``steps`` pruned steps (--pruned_loss_range 5 --simple_loss_scale 0.5)
-    from seed 0 on a seeded batch of noise with ragged lengths: the losses
-    and the model's state."""
+def _seeded_training(device, shape: str, steps: int = 3, **step_kw):
+    """``steps`` training steps (``step_kw`` to ``make_train_step``: the
+    pruned objective's arguments) from seed 0 on a seeded batch of noise
+    with ragged lengths: the losses and the model's state."""
     cfg = PRUNED_TRAININGS[shape]
     rng = np.random.default_rng(0)
     n = int(16000 * cfg["seconds"])
@@ -1260,7 +1365,7 @@ def _pruned_training(device, shape: str, steps: int = 3):
                                                   spec_augment=True, **feat_cfg),
                                  offset, scale, device=device)
     step = make_train_step(model, make_optimizer(model.parameters(), **cfg["optim"]), featurizer,
-                           pruned_range=5, simple_scale=0.5)
+                           **step_kw)
     gen = torch.Generator(device).manual_seed(1)
     losses = [step(batch, gen)["loss"].item() for _ in range(steps)]
     return losses, {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1274,8 +1379,9 @@ def test_pruned_training_repeats_bit_for_bit(cuda_device, shape):
     order), with cuDNN's TF32 flag left on, as the CLIs leave it."""
     torch.backends.cudnn.allow_tf32 = True
     try:
-        (losses, state), (losses2, state2) = (_pruned_training(cuda_device, shape)
-                                              for _ in range(2))
+        (losses, state), (losses2, state2) = (
+            _seeded_training(cuda_device, shape, pruned_range=5, simple_scale=0.5)
+            for _ in range(2))
     finally:
         torch.backends.cudnn.allow_tf32 = False
     assert all(np.isfinite(losses)) and losses == losses2
