@@ -8,11 +8,15 @@ For each seed the program's readings against the reference (the lower
 reading: sound runs), and on the seeds listed:
 
 * ``--control``: the control against the reference.  Training: the
-  program's own bf16 path (``compute_dtype=torch.bfloat16``).  Decoding:
+  program's own bf16 path (``compute_dtype=torch.bfloat16``), and the
+  reference with the prediction net's products alone in bf16 in the
+  program's place (``predict_bf16``).  Decoding:
   the reference with the encoder's products in bf16 and the prediction
   net's and joint's in fp8 (e4m3), rescoring the same served alignments.
 * ``--fault``: training, the reference with half of each batch left out
-  and the mean taken over the rest, in the program's place; decoding, the
+  and the mean taken over the rest, in the program's place
+  (``half_batch``), and the program with its optimizer's step doing
+  nothing (``unchanged``); decoding, the
   served N-best altered after the search: the first half's answers served
   for the second half (``half_batch``), and one label of each batch's
   first hypothesis that holds one changed, in its tokens and alignment
@@ -31,6 +35,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
+from unittest import mock  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -40,8 +45,10 @@ import torch  # noqa: E402
 
 from benchmark import drive_decode, drive_train, harness, program, traffic, weights  # noqa: E402
 from benchmark.reference import model as M  # noqa: E402
+from pika_tpu_torch.train import lr  # noqa: E402
 
 CONTROL = M.Precision(enc="bfloat16", dec="fp8")
+PREDICT_BF16 = M.Precision(dec="bfloat16", joint="float32")
 
 
 def seeds(spec: str) -> list:
@@ -66,24 +73,29 @@ def train_seed(ctx, control: bool, fault: bool) -> dict:
 
     got = program_readings(False)
     low = program_readings(True) if control else None
+    if fault:
+        with mock.patch.object(lr.Optimizer, "step", lambda self: None):
+            unchanged = program_readings(False)
     ctx.control = False
     state = weights.make_state(layout["shapes"], ctx.seed, ctx.device)
     pool = traffic.make_pool(ctx.traffic, ctx.config["model"]["vocab_size"], ctx.seed, ctx.device)
 
-    def ref(fault_kind=None) -> dict:
+    def ref(fault_kind=None, prec=M.FLOAT32) -> dict:
         gen = torch.Generator(ctx.device).manual_seed(weights.sub_seed(ctx.seed, 2))
-        return d.reference_readings(ctx, state, layout["names"], pool, gen, fault_kind)
+        return d.reference_readings(ctx, state, layout["names"], pool, gen, fault_kind, prec)
 
     t = time.perf_counter()
     reference = ref()
-    row = {"program": d.compare(got, reference, state), "reference_s": time.perf_counter() - t,
-           "detail": {"program": detail(got, reference, state)}}
+    row = {"reference_s": time.perf_counter() - t, "detail": {}}
+    readings = {"program": got}
     if control:
-        row["control"] = d.compare(low, reference, state)
-        row["detail"]["control"] = detail(low, reference, state)
+        readings.update(control=low, predict_bf16=ref(prec=PREDICT_BF16))
     if fault:
-        row["half_batch"] = d.compare(ref("half_batch"), reference, state)
-    del state, pool, reference
+        readings.update(half_batch=ref("half_batch"), unchanged=unchanged)
+    for kind, r in readings.items():
+        row[kind] = d.compare(r, reference, state)
+        row["detail"][kind] = detail(r, reference, state)
+    del state, pool, reference, readings
     harness.free_device(ctx)
     return row
 
@@ -91,7 +103,7 @@ def train_seed(ctx, control: bool, fault: bool) -> dict:
 def detail(got: dict, ref: dict, start: dict) -> dict:
     """Each step's signed relative loss gap; of each leaf number the
     median, the quartiles' spread, the median by part (encoder, prediction
-    net, joint) and the three worst leaves."""
+    net, joint), the three worst leaves and the prediction net's leaves."""
     leaves = drive_train.leaf_numbers(got, ref, start)
     out = {"loss": [(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]}
     for key, g in leaves.items():
@@ -104,6 +116,8 @@ def detail(got: dict, ref: dict, start: dict) -> dict:
         sub = [v for k, v in g.items() if not k.startswith(("encoder", "decoder"))]
         out[key + "_joint"] = float(np.median(sub)) if sub else None
         out[key + "_worst"] = sorted(g.items(), key=lambda kv: -kv[1])[:3]
+        out[key + "_predict"] = {k: float(f"{v:.5g}") for k, v in g.items()
+                                 if k.startswith(("decoder.", "embed."))}
     return out
 
 

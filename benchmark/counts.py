@@ -1,10 +1,12 @@
-"""The yardstick's arithmetic: the H100's peaks, the flagship training
-step's operation count and the joint kernels' operations and bytes, all
-from shapes alone.
+"""The yardstick's arithmetic: the H100's peaks, the training step's
+operation count and the joint kernels' operations and bytes, all from
+shapes alone.
 
-``flop_model`` is a frozen copy of ``bench.py:flop_model`` (the same as
-``pika_tpu_torch/tools/bench_train.py:flop_model``): the matmul terms of
-one training step, forward times three.  It leaves out the FFT, the norms,
+``train_step_flops`` counts the matmul terms of one training step,
+forward times three, as ``bench.py:flop_model`` did: the encoder's and
+the prediction net's forward products, each counted by its model part
+(``flops`` in ``reference/encoders/``, ``reference/decoders/``), and the
+joint's vocab projection, counted here.  It leaves out the FFT, the norms,
 the softmax and the elementwise work, so it undercounts a little and a
 share of the peak read from it is a lower bound.
 """
@@ -37,20 +39,18 @@ def encoder_frames(frames: int, layers: int = 9, kernel: int = 3) -> int:
     return frames
 
 
-def flop_model(t_frames: int, batch: int, u: int, vocab: int = 6268, nhid: int = 1024) -> float:
-    """Training FLOPs of one flagship step (full loss): ``bench.py``'s
-    matmul terms, forward times three for forward and backward."""
-    t4 = t_frames // 4  # the last TDNN layer has stride 4
-    fwd = 0.0
-    fwd += 2 * 3 * 240 * nhid * t_frames
-    fwd += 2 * 3 * nhid * nhid * (7 * t_frames + t4)
-    for t in (t_frames, t_frames, t4):   # 3 transformer layers
-        fwd += 2 * 4 * t * nhid * nhid          # q, k, v, o
-        fwd += 2 * 2 * t * t * nhid             # scores and context
-        fwd += 2 * 2 * t * nhid * (4 * nhid)    # FFN
-    fwd += 2 * (u + 1) * 2 * 8 * nhid * nhid    # 2-layer LSTM over U+1 symbols
-    fwd += 2 * t4 * (u + 1) * nhid * vocab      # the joint's vocab projection
-    return 3.0 * fwd * batch
+def train_step_flops(shapes: dict, model: dict) -> float:
+    """Training FLOPs of one step of any configuration: the forward
+    operations of one utterance through the encoder part and the
+    prediction-net part (their ``flops``) and through the joint's vocab
+    projection over the encoder's output frames, times three for forward
+    and backward, times the batch."""
+    from benchmark.reference import model as M
+
+    fwd = M.part("encoders", model["encoder_type"]).flops(shapes, model)
+    fwd += M.part("decoders", model["decoder_type"]).flops(shapes, model)
+    fwd += joint_product_flops(1, shapes["t_enc"], shapes["u1"], shapes["hid"], shapes["vocab"])
+    return 3.0 * fwd * shapes["batch"]
 
 
 def joint_product_flops(batch: int, t: int, u1: int, hid: int, vocab: int) -> float:

@@ -22,6 +22,7 @@ import torch
 
 from benchmark import program, traffic, weights
 from benchmark.reference import features as RF
+from benchmark.reference import model as M
 from benchmark.reference import train as reference
 
 
@@ -107,13 +108,15 @@ def check(ctx, run: dict) -> dict:
                    state)
 
 
-def reference_readings(ctx, state: dict, names: list, pool: list, gen, fault=None) -> dict:
+def reference_readings(ctx, state: dict, names: list, pool: list, gen, fault=None,
+                       prec=M.FLOAT32) -> dict:
     """The reference's readings of the checked steps (``fault``: one planted
-    in it, as ``reference/train.py`` says)."""
+    in it, as ``reference/train.py`` says; ``prec``: its products rounded,
+    a control)."""
     mix, config = ctx.traffic, ctx.config
     losses, grad, after = reference.train_steps(
         state, names, pool[:mix["checked_steps"]], gen, config["model"], config["features"], mix,
-        RF.global_cmvn(pool[0]["wavs"], config["features"]), fault=fault)
+        RF.global_cmvn(pool[0]["wavs"], config["features"]), prec, fault)
     return {"losses": losses, "first_grad": grad, "after": after}
 
 
@@ -122,13 +125,18 @@ def compare(got: dict, ref: dict, start: dict) -> dict:
     grad_gap and delta_gap: the worst leaf's |norm - reference norm| of the
     first gradient and of the change after the last step.  grad_diff: the
     median leaf's norm of the first gradient's difference from the
-    reference's.  Each leaf's is taken over the larger of its reference
-    norm and the median leaf's (``leaf_numbers``)."""
+    reference's; grad_diff_encoder: the same over the encoder's leaves
+    alone, whose sound gap is the encoder's own and not a prediction net's
+    stated bf16 attention.  Each leaf's is taken over the larger of its
+    reference norm and the median leaf's (``leaf_numbers``)."""
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
     leaves = leaf_numbers(got, ref, start)
+    diff = leaves["grad_diff"]
     return {"loss_gap": loss_gap, "grad_gap": max(leaves["grad_gap"].values()),
             "delta_gap": max(leaves["delta_gap"].values()),
-            "grad_diff": statistics.median(leaves["grad_diff"].values())}
+            "grad_diff": statistics.median(diff.values()),
+            "grad_diff_encoder": statistics.median(v for k, v in diff.items()
+                                                   if k.startswith("encoder."))}
 
 
 def leaf_numbers(got: dict, ref: dict, start: dict) -> dict:

@@ -11,7 +11,10 @@ Found by name, each in a file of its own:
 * a metric: ``benchmark/metrics/<name>.py``, whose ``read(record)``
   returns the number or None (nothing to read);
 * a cell's limits: ``benchmark/limits/<workload>.json``, the largest
-  value each compared number may take.
+  value each compared number may take;
+* a model part of the reference: ``benchmark/reference/encoders/<encoder_type>.py``
+  and ``benchmark/reference/decoders/<decoder_type>.py`` (``reference/model.py``),
+  whose encoder part also gives the cell's encoder shapes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from pathlib import Path
 import torch
 
 from benchmark import counts, program, trace, traffic
+from benchmark.reference import model as reference_model
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pika_tpu")
 
@@ -67,12 +71,15 @@ def kind_module(kind: str):
 
 
 def shapes_of(config: dict, mix: dict) -> dict:
+    """The cell's shapes: the batch, its input frames, the label positions,
+    the joint's width and vocabulary, and the keys the encoder part owns
+    (``t_enc``, the encoder's output frames, and its own widths)."""
     frames = counts.kaldi_frames(traffic.samples(mix))
     model = config["model"]
-    return {"batch": mix["batch"], "frames": frames,
-            "t_enc": counts.encoder_frames(frames, model["tdnn_layers"]),
-            "u1": mix.get("labels_per_utt", 0) + 1, "hid": model["hid_dim"],
-            "vocab": model["vocab_size"], "nhid": model["tdnn_nhid"]}
+    shapes = {"batch": mix["batch"], "frames": frames, "u1": mix.get("labels_per_utt", 0) + 1,
+              "hid": model["hid_dim"], "vocab": model["vocab_size"]}
+    shapes.update(reference_model.part("encoders", model["encoder_type"]).shapes(frames, model))
+    return shapes
 
 
 def make_ctx(root: Path, workload: str, seed: int, device, **kw) -> Ctx:

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from benchmark import weights
+from benchmark.reference import model as reference_model
 from pika_tpu_torch.decode.beam import BeamConfig, beam_search_features  # noqa: F401
 from pika_tpu_torch.features.fbank import FbankConfig
 from pika_tpu_torch.models.transducer import Transducer, TransducerConfig
@@ -32,8 +33,18 @@ def set_precision(config: dict) -> None:
 
 
 def transducer_config(config: dict) -> TransducerConfig:
+    """The port's configuration from the ``model`` keys that are its
+    fields.  A key that is neither a field nor read by the reference's
+    parts (``reference.model.keys``) is refused: the port would build its
+    default in its place."""
+    model = config["model"]
     fields = {f.name for f in dataclasses.fields(TransducerConfig)}
-    return TransducerConfig(**{k: v for k, v in config["model"].items() if k in fields})
+    unread = sorted(set(model) - fields - reference_model.keys(model))
+    if unread:
+        raise ValueError(f"configuration {config.get('name', '?')}: model key(s) "
+                         f"{', '.join(unread)} neither a TransducerConfig field nor read "
+                         f"by a reference part")
+    return TransducerConfig(**{k: v for k, v in model.items() if k in fields})
 
 
 def build_model(config: dict, seed: int, device) -> tuple:

@@ -25,6 +25,7 @@ from benchmark.reference import features as RF
 from benchmark.reference import model as M
 
 
+@M.exact_float32()
 def encode(state: dict, wavs: torch.Tensor, model: dict, feat: dict, cmvn: tuple,
            prec=M.FLOAT32):
     """Eval-mode features (no dither) normalized by ``cmvn`` (offset,
@@ -34,6 +35,7 @@ def encode(state: dict, wavs: torch.Tensor, model: dict, feat: dict, cmvn: tuple
 
 
 @torch.no_grad()
+@M.exact_float32()
 def alignment_scores(state: dict, enc: torch.Tensor, utt: torch.Tensor, tokens: torch.Tensor,
                      lens: torch.Tensor, aligns: torch.Tensor, align_lens: torch.Tensor,
                      model: dict, sm_scale: float, beam: int, max_symbols: int,

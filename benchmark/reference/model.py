@@ -1,21 +1,40 @@
-"""The transducer's forward pass in plain PyTorch over a dict of weights:
-the TDNN-Transformer encoder, the LSTM and the conv-transformer prediction
-nets and the gated joint, as pika's papers and recipes describe them
-(tencent-ailab/pika ``trainer/model``).
+"""The transducer's forward pass in plain PyTorch over a dict of weights,
+as pika's papers and recipes describe it (tencent-ailab/pika
+``trainer/model``).  This file holds what the model parts share: the
+products, the norms, dropout, the transformer layer, the label embedding
+and the gated joint.  Each encoder and prediction net is a part of its
+own, found by the configuration's ``encoder_type`` and ``decoder_type``:
+``encoders/<encoder_type>.py`` and ``decoders/<decoder_type>.py``.
+
+A part defines ``forward`` (its float32 reference, through ``Precision``,
+with its train-mode draws), ``KEYS`` (the ``model`` keys it reads),
+``TINY`` (its sizes in the CPU tests' tree) and ``flops(shapes, model)``
+(its own forward matmul operations for one utterance, which
+``counts.train_step_flops`` adds to the joint's); an encoder part also
+``shapes(frames, model)``, the cell-shape keys it owns (its output frames
+``t_enc``, ...).
 
 Every product goes through ``Precision``: float32 by default (the
 reference), or with its operands rounded to a lower precision (the
-control).  In train mode the random numbers are drawn from a passed
-``torch.Generator`` in this order, which is the order of the program's
-draws: for each transformer layer the attention's keep-mask, then the
-masks after the attention's output projection, after the FFN's ReLU and
-after its second linear layer.  Weights are keyed by the names of the
-program's checkpoints (``encoder.conv_0.weight``, ...).
+control).  The reference's entries (``train.train_steps``,
+``decode.encode``, ``decode.alignment_scores``) run under
+``exact_float32``: the TF32 flags the harness sets for the program do
+not reach the reference's float32 products.  In train mode the random
+numbers are drawn from a passed ``torch.Generator`` in this order, which
+is the order of the program's draws: the encoder's, then the prediction
+net's, each part's in its own order; a transformer layer draws the
+attention's keep-mask, then the masks after the attention's output
+projection, after the FFN's ReLU and after its second linear layer.
+Weights are keyed by the names of the program's checkpoints
+(``encoder.conv_0.weight``, ...).
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import math
+from pathlib import Path
 from typing import Callable, Optional
 
 import torch
@@ -23,6 +42,9 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-5
 LN_EPS = 1e-6
+HERE = Path(__file__).resolve().parent
+# the model keys read here, whatever the parts
+KEYS = ("encoder_type", "decoder_type", "vocab_size", "hid_dim")
 
 
 def fp8_round(x: torch.Tensor) -> torch.Tensor:
@@ -40,14 +62,27 @@ ROUND: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 class Precision:
-    """How the products of the encoder (``enc``) and of the prediction net
-    and joint (``dec``) round their operands before a float32 product."""
+    """How the products of the encoder (``enc``), of the prediction net
+    (``dec``) and of the joint (``joint``, by default as ``dec``) round
+    their operands before a float32 product."""
 
-    def __init__(self, enc: str = "float32", dec: str = "float32"):
-        self.enc, self.dec = ROUND[enc], ROUND[dec]
+    def __init__(self, enc: str = "float32", dec: str = "float32", joint: Optional[str] = None):
+        self.enc, self.dec, self.joint = ROUND[enc], ROUND[dec], ROUND[joint or dec]
 
 
 FLOAT32 = Precision()
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """cuDNN's and the matmuls' TF32 off inside, as they were after: the
+    harness sets them for the program (``program.set_precision``)."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def linear(r, x, p, name, bias=True):
@@ -122,29 +157,33 @@ def transformer_layer(r, x, p, name, heads: int, mask=None, rate: float = 0.0,
     return dropout(linear(r, inner, p, ff + ".w_2"), rate, gen) + x
 
 
-def tdnn_schedule(layers: int):
-    """(dilation, stride) of each TDNN layer: 1, 1, 1, 3, ..., 3, the last
-    with stride 4."""
-    return [(1 if l < 3 else 3, 4 if l == layers - 1 else 1) for l in range(layers)]
+def part(kind: str, name: str):
+    """The model part ``<kind>/<name>.py`` (``kind``: ``encoders`` or
+    ``decoders``), imported as a module of this package."""
+    module = f"{__package__}.{kind}.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise LookupError(f"no reference part for {kind[:-1]} {name!r}: "
+                          f"looked for {HERE / kind / (name + '.py')}") from None
+
+
+def parts(model: dict) -> tuple:
+    """(encoder part, prediction-net part) of a configuration's model."""
+    return part("encoders", model["encoder_type"]), part("decoders", model["decoder_type"])
+
+
+def keys(model: dict) -> set:
+    """The model keys the reference reads for this configuration."""
+    enc, dec = parts(model)
+    return set(KEYS) | set(enc.KEYS) | set(dec.KEYS)
 
 
 def encoder(p, x, model: dict, prec: Precision = FLOAT32, train: bool = False, gen=None):
-    """(B, T, input_dim) features -> (B, T', hid_dim)."""
-    r = prec.enc
-    heads = model["encoder_heads"]
-    rate = model["tdnn_transformer_dropout"] if train else 0.0
-    x = batch_norm(torch.relu(linear(r, x, p, "encoder.fc_in")), p, "encoder.bn_in", train)
-    n_tf = 0
-    for l, (dil, stride) in enumerate(tdnn_schedule(model["tdnn_layers"])):
-        w = p[f"encoder.conv_{l}.weight"]
-        y = F.conv1d(r(x).transpose(1, 2), r(w), p[f"encoder.conv_{l}.bias"], stride=stride,
-                     dilation=dil)
-        x = batch_norm(torch.relu(y).transpose(1, 2), p, f"encoder.bn_{l}", train)
-        if (l + 1) % 3 == 0 and n_tf < len(heads):
-            x = transformer_layer(r, x, p, f"encoder.transformer_{n_tf}", heads[n_tf],
-                                  rate=rate, head_shared=model["attn_cheap_dropout"], gen=gen)
-            n_tf += 1
-    return linear(r, batch_norm(x, p, "encoder.bn_final", train), p, "encoder.fc_out")
+    """(B, T, input_dim) features -> (B, T', hid_dim), by the encoder part."""
+    return part("encoders", model["encoder_type"]).forward(p, x, model, prec, train, gen)
 
 
 def embed_labels(p, labels, lens, model: dict):
@@ -158,55 +197,17 @@ def embed_labels(p, labels, lens, model: dict):
     return p["embed.weight"][y], pad
 
 
-def lstm(r, p, x, layers: int, rate: float = 0.0, gen=None):
-    """Unidirectional LSTM (gates i, f, g, o; one bias a layer) over
-    (B, U, E), one cell step a position."""
-    for k in range(layers):
-        w_ih, w_hh, bias = (p[f"decoder.{n}_l{k}"] for n in ("weight_ih", "weight_hh", "bias"))
-        xp = r(x) @ r(w_ih).t() + bias
-        h = c = x.new_zeros(x.shape[0], w_hh.shape[1])
-        outs = []
-        for t in range(x.shape[1]):
-            i, f, g, o = (xp[:, t] + r(h) @ r(w_hh).t()).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            outs.append(h)
-        x = torch.stack(outs, dim=1)
-        if k < layers - 1:
-            x = dropout(x, rate, gen)
-    return x
-
-
-def conv_transformer_lm(r, p, x, pad, model: dict, rate: float = 0.0, gen=None):
-    """Causal conv (kernel 5, left-padded) + ReLU + transformer layer under
-    the causal and key-padding masks, per layer; then LayerNorm and the map
-    to the joint's width."""
-    b, u, _ = x.shape
-    mask = torch.ones(u, u, dtype=torch.bool, device=x.device).triu(1)[None] | pad[:, None, :]
-    for i in range(model["dec_layers"]):
-        w = p[f"decoder.conv_{i}.weight"]
-        y = F.conv1d(F.pad(r(x).transpose(1, 2), (w.shape[-1] - 1, 0)), r(w),
-                     p[f"decoder.conv_{i}.bias"])
-        x = transformer_layer(r, torch.relu(y).transpose(1, 2), p, f"decoder.transformer_{i}",
-                              model["dec_heads"], mask=mask, rate=rate, gen=gen)
-    return linear(r, layer_norm(x, p, "decoder.layer_norm"), p, "decoder.linear_out")
-
-
 def predict(p, labels, lens, model: dict, prec: Precision = FLOAT32, train: bool = False,
             gen=None):
     """(B, U) labels with lengths -> (B, U+1, hid_dim) prediction-net
-    outputs, SOS first."""
-    r = prec.dec
-    rate = model["dropout"] if train else 0.0
+    outputs, SOS first, by the prediction-net part."""
     x, pad = embed_labels(p, labels, lens, model)
-    if model["decoder_type"] == "rnn":
-        return lstm(r, p, x, model["dec_layers"], rate, gen)
-    return conv_transformer_lm(r, p, x, pad, model, rate, gen)
+    return part("decoders", model["decoder_type"]).forward(p, x, pad, model, prec, train, gen)
 
 
 def joint_factors(p, enc, dec, prec: Precision = FLOAT32):
     """(ax, gx) over the frames and (ay, gy) over the label positions."""
-    r = prec.dec
+    r = prec.joint
     return (linear(r, enc, p, "fc1_x", bias=False), linear(r, enc, p, "gate_x", bias=False),
             linear(r, dec, p, "fc1_y"), linear(r, dec, p, "gate_y"))
 
@@ -214,4 +215,4 @@ def joint_factors(p, enc, dec, prec: Precision = FLOAT32):
 def joint_logits(p, ax, gx, ay, gy, prec: Precision = FLOAT32):
     """Logits of aligned factor pairs: tanh(ax + ay) * sigmoid(gx + gy)
     through fc2."""
-    return linear(prec.dec, torch.tanh(ax + ay) * torch.sigmoid(gx + gy), p, "fc2")
+    return linear(prec.joint, torch.tanh(ax + ay) * torch.sigmoid(gx + gy), p, "fc2")

@@ -36,6 +36,7 @@ def features(batch: dict, feat: dict, traffic: dict, cmvn: tuple, gen) -> torch.
     return x
 
 
+@M.exact_float32()
 def train_steps(state: dict, param_names: list, batches: list, seed_gen: torch.Generator,
                 model: dict, feat: dict, traffic: dict, cmvn: tuple, prec=M.FLOAT32,
                 fault: str = None):

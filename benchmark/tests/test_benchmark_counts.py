@@ -1,9 +1,12 @@
 """The yardstick's arithmetic, pinned: the flagship training step's
 operations and the joint kernels' roofline bounds at 32 x 10 s, U = 40."""
 
+import json
+
 import pytest
 
 from benchmark import counts
+from benchmark.tests import tiny
 
 T = counts.kaldi_frames(160000)
 T_ENC = counts.encoder_frames(T)
@@ -13,8 +16,13 @@ def test_frames():
     assert (T, T_ENC) == (998, 239)
 
 
-def test_flop_model_of_the_flagship_step():
-    assert counts.flop_model(T, 32, 40) / 1e12 == pytest.approx(23.455, abs=5e-4)
+def test_flops_of_the_flagship_step():
+    """``bench.py``'s terms, the joint's vocab projection over the encoder's
+    239 output frames (``bench.py`` took 998 // 4 = 249: 23.455 TFLOP)."""
+    model = json.loads((tiny.REPO / "benchmark/configs/pika_flagship.json").read_text())["model"]
+    shapes = {"batch": 32, "frames": T, "t_enc": T_ENC, "u1": 41, "hid": 1024, "vocab": 6268,
+              "nhid": 1024}
+    assert counts.train_step_flops(shapes, model) / 1e12 == pytest.approx(22.950, abs=5e-4)
 
 
 def test_k1_operations_and_bound():

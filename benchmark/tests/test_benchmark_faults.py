@@ -1,4 +1,5 @@
-"""Runs of each cell on the CPU at a test's size (``tiny.py``), the
+"""Runs of each cell on the CPU at a test's size (``tiny.py``; the cells
+read from ``BENCHMARK.json`` by the kind of their mix), the
 harness's look for a card skipped, with the timed path broken underneath:
 ``correct`` has to come out false, once for each fault the cell can have.
 And the controls: the lower precision, put in the program's place, reads
@@ -16,8 +17,8 @@ from benchmark.tests import tiny
 from pika_tpu_torch.decode import beam
 from pika_tpu_torch.train import lr
 
-TRAIN = "flagship.train_b32_10s"
-DECODES = ("flagship.decode_b8_beam8", "convtf.decode_b8_beam8")
+TRAINS = tiny.cells("train")
+DECODES = tiny.cells("decode")
 
 
 @pytest.fixture(scope="module")
@@ -78,21 +79,24 @@ def stop_at_once(self):
     self.state["running"].fill_(False)
 
 
-def test_train_sound_runs(root):
-    result = run_cell(root, TRAIN)
+@pytest.mark.parametrize("workload", TRAINS)
+def test_train_sound_runs(root, workload):
+    result = run_cell(root, workload)
     assert all(c["value"] < 1.0 for c in result["checks"].values())
 
 
-def test_train_state_unchanged(root, monkeypatch):
+@pytest.mark.parametrize("workload", TRAINS)
+def test_train_state_unchanged(root, workload, monkeypatch):
     monkeypatch.setattr(lr.Optimizer, "step", lambda self: None)
-    result = run_cell(root, TRAIN)
+    result = run_cell(root, workload)
     assert result["checks"]["delta_gap"]["value"] == pytest.approx(1.0)
     assert result["correct"] is False
 
 
-def test_train_half_batch(root, monkeypatch):
+@pytest.mark.parametrize("workload", TRAINS)
+def test_train_half_batch(root, workload, monkeypatch):
     monkeypatch.setattr(program, "make_train_step", half_batch_step(program.make_train_step))
-    assert run_cell(root, TRAIN)["correct"] is False
+    assert run_cell(root, workload)["correct"] is False
 
 
 @pytest.mark.parametrize("workload", DECODES)
@@ -113,11 +117,12 @@ def test_decode_faults(root, workload, fault, monkeypatch):
     assert run_cell(root, workload)["correct"] is False
 
 
-def test_train_control_fails(root):
+@pytest.mark.parametrize("workload", TRAINS)
+def test_train_control_fails(root, workload):
     """The program's bf16 path and the half-batch reference read above the
     cell's limits."""
-    limits = harness.make_ctx(root, TRAIN, 1, "cpu").limits
-    ctx = harness.make_ctx(root, TRAIN, 2 ** 31 + 3, "cpu")
+    limits = harness.make_ctx(root, workload, 1, "cpu").limits
+    ctx = harness.make_ctx(root, workload, 2 ** 31 + 3, "cpu")
     row = calibrate.train_seed(ctx, control=True, fault=True)
     for kind in ("control", "half_batch"):
         assert any(row[kind][k] > limits[k] for k in limits), (kind, row)

@@ -3,14 +3,18 @@
 
     python -m pytest --noconftest -m gpu benchmark/tests/test_benchmark_gpu.py -q
 
-For each cell, on three seeds: the program's readings pass the cell's
-limits, and the control and each fault fail them on every seed.
-Training's control is the program's bf16 path, its fault the reference
-with half of each batch left out; decoding's control is the reference's
+For each cell of ``BENCHMARK.json``, on three seeds: the program's
+readings pass the cell's limits, and the control and each fault fail them
+on every seed (each seed's readings printed, seen with ``-s``).
+Training's control is the program's bf16 path, its faults the reference
+with half of each batch left out and the program's optimizer step doing
+nothing; decoding's control is the reference's
 products in bf16 and fp8, its faults the first half's answers served for
 the second half and one token altered where the search produced it."""
 
 from __future__ import annotations
+
+import json
 
 import pytest
 import torch
@@ -19,7 +23,7 @@ from benchmark import calibrate, harness
 from benchmark.tests import tiny
 
 SEEDS = (2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103)
-CELLS = ("flagship.train_b32_10s", "flagship.decode_b8_beam8", "convtf.decode_b8_beam8")
+CELLS = tiny.cells("train") + tiny.cells("decode")
 
 
 @pytest.fixture
@@ -39,10 +43,12 @@ def test_control_and_faults_fail_at_full_size(card, workload):
         limits = ctx.limits
         if ctx.traffic["kind"] == "train":
             row = calibrate.train_seed(ctx, control=True, fault=True)
-            kinds = ("control", "half_batch")
+            kinds = ("control", "half_batch", "unchanged")
         else:
             row = calibrate.decode_seed(ctx, control=True, fault=True)
             kinds = ("control", "half_batch", "token")
+        print(json.dumps({"workload": workload, "seed": seed, **{
+            k: row[k] for k in ("program",) + kinds}}), flush=True)   # seen with -s
         assert all(row["program"][k] <= limits[k] for k in limits), row
         for kind in kinds:
             failed.setdefault(kind, []).append(any(row[kind][k] > limits[k] for k in row[kind]))
