@@ -1,7 +1,8 @@
 """Models: LSTM (the prediction net; bidirectional and masked in the LAS),
-SRU, transformer blocks, TDNN-Transformer encoder, the conv-transformer
-prediction net, the transducer and the LAS rescorer."""
+SRU, transformer blocks, TDNN-Transformer and Conformer encoders, the
+conv-transformer prediction net, the transducer and the LAS rescorer."""
 
+from pika_tpu_torch.models.conformer import ConformerEncoder
 from pika_tpu_torch.models.conv_transformer_lm import ConvTransformerLM
 from pika_tpu_torch.models.las import LAS, LASConfig, PyramidLSTM, init_las
 from pika_tpu_torch.models.lstm import LSTM, lstm_cell_step, lstm_stack_step

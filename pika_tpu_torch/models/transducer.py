@@ -1,4 +1,4 @@
-"""RNN-Transducer: TDNN-Transformer or LSTM encoder + LSTM or
+"""RNN-Transducer: TDNN-Transformer, Conformer or LSTM encoder + LSTM or
 conv-transformer prediction net + gated, factorized joint (port of
 ``pika_tpu/models/transducer.py``).
 
@@ -17,6 +17,16 @@ an ``enc_layers`` LSTM of width ``hid_dim`` over the frames, bidirectional
 with ``brnn`` (half the width each way), masked by the frame lengths; it
 does not subsample, so ``encoder_out_len`` is the identity.
 
+The ``conformer`` encoder (``encoder_type="conformer"``,
+``models/conformer.py``) has ``conformer_layers`` blocks of
+``conformer_d_model`` with ``conformer_heads`` relative-position heads, FFNs
+of ``conformer_d_ff``, a depthwise convolution of ``conformer_kernel`` and
+dropout of ``conformer_dropout`` (the probabilities' mask shared across
+heads with ``attn_cheap_dropout``), after a 4x convolutional subsampling;
+it masks by the frame lengths.  The defaults are Conformer (L) of
+arXiv:2005.08100, Table 1.  It takes none of ``attn_flash``,
+``attn_chunk`` and ``remat``.
+
 The ``transformer`` prediction net (``decoder_type="transformer"``) is a
 ``ConvTransformerLM`` of ``dec_layers`` layers (``dec_d_model``,
 ``dec_heads``, ``dec_d_ff``) over the embedded labels, masked causally and
@@ -27,9 +37,11 @@ by the label lengths.  It has no incremental step: the decode loops take
 ``simple_lm`` (``simple_factors``; ``ops/rnnt_pruned.py``); the decoders
 leave them unused.
 
-Train mode is the module's own (``model.train()``): the TDNN encoder's
-BatchNorm takes batch statistics and updates its running ones, its
-transformer layers drop out with ``tdnn_transformer_dropout``, and the LSTMs
+Train mode is the module's own (``model.train()``): the TDNN and
+Conformer encoders' BatchNorms take batch statistics and update their
+running ones, the TDNN's transformer layers drop out with
+``tdnn_transformer_dropout`` and the conformer with ``conformer_dropout``,
+and the LSTMs
 (the rnn encoder's, the LSTM prediction net's) between their layers and the
 transformer prediction net's layers with ``dropout``, drawing their masks from the generator passed to ``encode``
 and ``predict``.
@@ -45,6 +57,7 @@ import torch
 from torch import nn
 
 from pika_tpu_torch.device import resolve_device
+from pika_tpu_torch.models.conformer import ConformerEncoder, RelPositionAttention
 from pika_tpu_torch.models.conv_transformer_lm import ConvTransformerLM
 from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
@@ -53,12 +66,13 @@ from pika_tpu_torch.utils.profiling import span
 
 @dataclasses.dataclass(frozen=True)
 class TransducerConfig:
-    """Same fields and defaults as ``pika_tpu.models.TransducerConfig``."""
+    """The fields and defaults of ``pika_tpu.models.TransducerConfig``, and
+    the conformer encoder's (``conformer_*``), which the port alone has."""
 
     input_dim: int
     vocab_size: int          # labels 0..V-1, blank = 0
     hid_dim: int = 512       # rnn_size / joint dim
-    encoder_type: str = "rnn"          # 'rnn' | 'tdnn_transformer'
+    encoder_type: str = "rnn"          # 'rnn' | 'tdnn_transformer' | 'conformer'
     decoder_type: str = "rnn"          # 'rnn' | 'transformer'
     enc_layers: int = 2
     dec_layers: int = 2
@@ -76,6 +90,12 @@ class TransducerConfig:
     dec_heads: int = 8
     dec_d_ff: int = 2048
     simple_joint: bool = False
+    conformer_layers: int = 17
+    conformer_d_model: int = 512
+    conformer_heads: int = 8
+    conformer_d_ff: int = 2048
+    conformer_kernel: int = 32
+    conformer_dropout: float = 0.1
 
     @property
     def pad_id(self) -> int:
@@ -87,13 +107,21 @@ class Transducer(nn.Module):
     def __init__(self, config: TransducerConfig, device=None):
         super().__init__()
         cfg = config
-        if cfg.encoder_type not in ("rnn", "tdnn_transformer"):
+        if cfg.encoder_type not in ("rnn", "tdnn_transformer", "conformer"):
             raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
+        if cfg.encoder_type == "conformer" and (cfg.attn_flash or cfg.attn_chunk or cfg.remat):
+            raise ValueError("the conformer encoder takes none of attn_flash, attn_chunk, remat")
         self.config = cfg
         h = cfg.hid_dim
         if cfg.encoder_type == "rnn":
             self.encoder = LSTM(cfg.input_dim, h, cfg.enc_layers, cfg.dropout,
                                 bidirectional=cfg.brnn, device=device)
+        elif cfg.encoder_type == "conformer":
+            self.encoder = ConformerEncoder(
+                cfg.input_dim, h, d_model=cfg.conformer_d_model, layers=cfg.conformer_layers,
+                heads=cfg.conformer_heads, d_ff=cfg.conformer_d_ff, kernel=cfg.conformer_kernel,
+                dropout_rate=cfg.conformer_dropout, cheap_dropout=cfg.attn_cheap_dropout,
+                device=device)
         else:
             self.encoder = TDNNTransformerEncoder(
                 cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
@@ -119,12 +147,15 @@ class Transducer(nn.Module):
     def encode(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, D) -> (B, T', H).  The rnn encoder masks by ``x_len``
-        (outputs 0 past each length); the TDNN encoder sees the padded
-        frames, as the JAX encoder does.  Train mode draws dropout masks
-        from ``generator``."""
+        (outputs 0 past each length), the conformer its attention's keys
+        and its convolutions' inputs past each length; the TDNN encoder sees
+        the padded frames, as the JAX encoder does.  Train mode draws
+        dropout masks from ``generator``."""
         with span("encoder"):
             if self.config.encoder_type == "rnn":
                 return self.encoder(x, generator, lengths=x_len)[0]
+            if self.config.encoder_type == "conformer":
+                return self.encoder(x, x_len, generator)
             return self.encoder(x, generator=generator)
 
     def encoder_out_len(self, x_len):
@@ -238,15 +269,19 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, in the distributions flax uses:
-    truncated LeCun normal for dense and conv kernels and the LSTM input
-    weights, orthogonal LSTM recurrent weights, normal(1/sqrt(E)) embeddings,
+    truncated LeCun normal for dense and conv kernels, the LSTM input
+    weights and the conformer's position biases u and v (fan in d_head),
+    orthogonal LSTM recurrent weights, normal(1/sqrt(E)) embeddings,
     zero biases, identity norms and BatchNorm running stats (0, 1)."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, RelPositionAttention):
+                for bias in (mod.pos_bias_u, mod.pos_bias_v):
+                    _lecun_normal_(bias, bias.shape[1], generator)
             elif isinstance(mod, nn.Embedding):
                 nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=generator)
             elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):

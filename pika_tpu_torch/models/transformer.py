@@ -65,7 +65,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(mask, x / keep, 0.0)
 
 
 def head_shared_dropout(attn: torch.Tensor, rate: float,
@@ -78,8 +78,7 @@ def head_shared_dropout(attn: torch.Tensor, rate: float,
     thr = int(round(keep * 0xFFFFFFFF)) - 2 ** 31
     bits = torch.randint(-2 ** 31, 2 ** 31, (attn.shape[0], 1) + tuple(attn.shape[2:]),
                          dtype=torch.int32, generator=generator, device=attn.device)
-    return torch.where(bits < thr, attn / keep, torch.zeros((), dtype=attn.dtype,
-                                                            device=attn.device))
+    return torch.where(bits < thr, attn / keep, 0.0)
 
 
 def checkpoint_with_generator(fn: Callable, generator: Optional[torch.Generator], *args):

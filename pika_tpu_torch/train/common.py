@@ -62,7 +62,9 @@ def add_loader_args(parser: argparse.ArgumentParser) -> None:
 def add_model_args(parser: argparse.ArgumentParser) -> None:
     """Model flags, the JAX CLI's set."""
     parser.add_argument("--encoder_type", type=str, default="rnn",
-                        choices=["rnn", "transformer"])
+                        choices=["rnn", "transformer", "conformer"],
+                        help="transformer: the TDNN-Transformer; conformer: the Conformer "
+                             "(--conformer_* flags, --rnn_size its output width)")
     parser.add_argument("--decoder_type", type=str, default="rnn",
                         choices=["rnn", "transformer"])
     parser.add_argument("--enc_layers", type=int, default=2)
@@ -81,6 +83,14 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--tdnn_transformer_dropout", type=float, default=0.2,
                         help="attention/FFN dropout inside the TDNN-Transformer encoder's "
                              "transformer layers")
+    parser.add_argument("--conformer_layers", type=int, default=17)
+    parser.add_argument("--conformer_d_model", type=int, default=512)
+    parser.add_argument("--conformer_heads", type=int, default=8)
+    parser.add_argument("--conformer_d_ff", type=int, default=2048)
+    parser.add_argument("--conformer_kernel", type=int, default=32,
+                        help="the conformer's depthwise convolution over time")
+    parser.add_argument("--conformer_dropout", type=float, default=0.1,
+                        help="dropout inside the conformer encoder")
     parser.add_argument("--attn_chunk", type=int, default=0,
                         help="chunked encoder self-attention over query blocks of this size "
                              "(O(T*chunk) memory instead of O(T^2)); 0 = full attention. "

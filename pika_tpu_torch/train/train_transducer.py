@@ -33,7 +33,11 @@ which the decode CLI reads) while the other ranks wait; ``--resume``
 continues from the newest checkpoint.  The log lines are the JAX CLI's;
 ``WORKER-ID`` in LOG becomes the rank.
 
-``--decoder_type transformer`` builds the conv-transformer prediction net;
+``--encoder_type transformer`` builds the TDNN-Transformer encoder and
+``conformer`` the Conformer (``models/conformer.py``, its sizes from the
+``--conformer_*`` flags: Conformer (L) by default; features unspliced with
+``--lctx 0 --rctx 0``); ``--decoder_type transformer`` builds the
+conv-transformer prediction net;
 ``--pruned_loss_range N`` adds the simple joint's heads and trains the
 pruned objective (``train/step.py``) in the sync path and every BMUF
 variant, its banded term weighed 0.1 for the first
@@ -76,6 +80,7 @@ from pika_tpu_torch.train.step import make_eval_step, make_train_step
 from pika_tpu_torch.utils.logger import Logger
 
 DRAIN_EVERY = 8  # steps between reads of the device-side losses
+ENCODER_TYPES = {"rnn": "rnn", "transformer": "tdnn_transformer", "conformer": "conformer"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,14 +112,17 @@ def make_model(args, input_dim: int, device: torch.device):
         return model, model.config
     cfg = TransducerConfig(
         input_dim=input_dim, vocab_size=args.output_dim, hid_dim=args.rnn_size,
-        encoder_type="tdnn_transformer" if args.encoder_type == "transformer" else "rnn",
+        encoder_type=ENCODER_TYPES[args.encoder_type],
         decoder_type="transformer" if args.decoder_type == "transformer" else "rnn",
         enc_layers=args.enc_layers,
         dec_layers=args.dec_layers, embd_dim=args.embd_dim, dropout=args.dropout,
         brnn=args.brnn, tdnn_nhid=args.tdnn_nhid, tdnn_layers=args.tdnn_layers,
         tdnn_transformer_dropout=args.tdnn_transformer_dropout, remat=args.remat,
         attn_chunk=args.attn_chunk, attn_cheap_dropout=common.resolve_cheap_dropout(args),
-        simple_joint=args.pruned_loss_range > 0)
+        simple_joint=args.pruned_loss_range > 0, conformer_layers=args.conformer_layers,
+        conformer_d_model=args.conformer_d_model, conformer_heads=args.conformer_heads,
+        conformer_d_ff=args.conformer_d_ff, conformer_kernel=args.conformer_kernel,
+        conformer_dropout=args.conformer_dropout)
     return init_transducer(cfg, torch.Generator(device).manual_seed(args.seed), device), cfg
 
 

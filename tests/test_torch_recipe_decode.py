@@ -13,6 +13,7 @@ directory (``mini_grammar``'s bundle, dev set, CMVN and LM)::
 printing the JAX CLI's and the port's ``%WER`` lines (``SCALE`` ``none``:
 no LM)."""
 
+import dataclasses
 import inspect
 import json
 import os
@@ -47,7 +48,9 @@ def port_to_flax(bundle: str, out: str) -> None:
     """Write a JAX bundle of the port bundle ``bundle`` into ``out``."""
     with open(os.path.join(bundle, "model.json")) as f:
         spec = json.load(f)
-    cfg = ConfigJax(**spec["config"])
+    # the port's own fields (the conformer's) have no JAX counterpart
+    known = {f.name for f in dataclasses.fields(ConfigJax)}
+    cfg = ConfigJax(**{k: v for k, v in spec["config"].items() if k in known})
     variables = jax.jit(lambda key: init_jax(key, cfg, max_t=64)[1])(jax.random.PRNGKey(0))
     leaves, treedef = jax.tree_util.tree_flatten(jax.tree.map(np.asarray, variables))
     sizes = np.cumsum([0] + [x.size for x in leaves])

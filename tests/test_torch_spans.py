@@ -38,7 +38,7 @@ TRAIN_PARENT = {"features": "train.step", "encoder": "train.step",
 
 def tiny_config(name: str) -> dict:
     config = json.loads((tiny.BENCH / "configs" / f"{name}.json").read_text())
-    config["model"].update(tiny.TINY_MODEL)
+    config["model"] = tiny.tiny_model(config["model"])
     config["features"].update(tiny.TINY_FEAT)
     return config
 
