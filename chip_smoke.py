@@ -17,10 +17,16 @@ V=6268, random weights from a seed):
   decoding of 8 utterances of 10 s;
 * beam search on the same 8 utterances (beam 8, n_best 8, 200 symbols):
   the search replayed as a CUDA graph against its eager loop (identical
-  N-bests), beam 1 against greedy, the N-best's invariants, bf16 ("auto")
-  against float32, wall times of greedy and beam 8 graphed and eager and of
-  beam 8 at bf16; the flash beam decode (3 K4 forward launches per encoder
-  pass); and, after every other phase, a profiled graphed search;
+  N-bests), the bookkeeping kernels (``csrc/beam_step.cu``) against the
+  torch body step by step from the same state at the decode cells' search
+  (bf16, 64 symbols: the same state wherever a step's selection had no
+  near tie) and each kernel's device time, beam 1 against greedy, the
+  N-best's invariants, bf16 ("auto") against float32, wall times of greedy
+  and beam 8 graphed and eager, of the graphed torch body and of beam 8 at
+  bf16; the flash beam decode (3
+  K4 forward launches per encoder pass); and, after every other phase, a
+  profiled graphed search on the kernels and on the torch body (device ops
+  a loop step);
 * the decode CLI (``train/eval_transducer.py``) in-process on 8 synthetic
   10 s wavs and a port bundle of the model: 8 x 8 N-best lines and a WER
   line (a random model's WER is printed, not judged);
@@ -194,8 +200,12 @@ import torch
 from pika_tpu_torch.data.kaldi_ark import write_matrix_ark
 from pika_tpu_torch.data.prep import main as prep_main
 from pika_tpu_torch.data.wavio import read_wav, write_wav
+import pika_tpu_torch.decode.beam as beam_module
+from pika_tpu_torch.decode import beam_kernels
 from pika_tpu_torch.decode.beam import (
+    NEG,
     BeamConfig,
+    BeamLoop,
     beam_search,
     beam_search_eager,
     beam_search_waveforms,
@@ -283,6 +293,7 @@ from pika_tpu_torch.train.step import (
     make_train_step,
 )
 from pika_tpu_torch.utils import profiling
+from pika_tpu_torch.utils.dtypes import resolve_mm_dtype
 
 VOCAB = 6268
 BATCH = 8
@@ -1741,10 +1752,11 @@ def las_path(device, paths: dict) -> None:
     say(f"LAS phase: {time.perf_counter() - t_phase:.3f} s")
 
 
-def profile(fn, what: str, also: str = "") -> None:
+def profile(fn, what: str, also: str = "") -> int:
     """torch.profiler over one warm call of ``fn`` (which ends in a host
     sync): device-busy share of the wall time, the kernels with the most
-    device time, and the device time of those whose name holds ``also``."""
+    device time, and the device time of those whose name holds ``also``.
+    Returns the count of device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -1759,7 +1771,7 @@ def profile(fn, what: str, also: str = "") -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
         say(f"profiled {what}: the profiler saw no device time")
-        return
+        return 0
     n_kernels = sum(e.count for e in events)
     say(f"profiled {what}: wall {wall:.4f} s (profiler on), device busy "
         f"{busy_us / 1e6:.4f} s ({busy_us / 1e6 / wall:.1%}), {n_kernels} device ops")
@@ -1767,6 +1779,7 @@ def profile(fn, what: str, also: str = "") -> None:
     for e in ranked[:10] + [e for e in ranked[10:] if also and also in e.key]:
         say(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
+    return n_kernels
 
 
 def one_step(device, batch: dict, what: str, backend: str = "auto", **model_kw):
@@ -2018,7 +2031,8 @@ def k4_d256_times(device, sdpa) -> None:
 
 def reset_launches() -> None:
     for fn in (joint_channels, joint_channels_bwd_in, joint_channels_bwd_w, dp_forward,
-               dp_backward, flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
+               dp_backward, flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+               beam_kernels.select, beam_kernels.update, beam_kernels.commit):
         fn.launches = 0
 
 
@@ -2203,6 +2217,202 @@ def top1_agreement(a, b) -> int:
     return int(same.sum())
 
 
+# where two of a reference selection's first k + 1 candidates lie this close,
+# the kernels' float32 log-softmax (another order of summation) may pick or
+# order them otherwise; equal values of one beam's row are no such tie (the
+# log-softmax maps a row's equal logits to equal values on both sides, and
+# both put the lower index first)
+TIE_MARGIN = 1e-4
+# a step's scores from one state: the kernels' log-softmax sums in another
+# order, a few float32 ulps at the scores' magnitude (thousands of nats)
+STEP_RTOL, STEP_ATOL = 1e-6, 1e-5
+# the decode cells' search (benchmark/traffic/decode_b8_beam8.json)
+CELL_BEAM = BeamConfig(beam_size=BEAM, n_best=NBEST, sm_scale=1.2, max_symbols=64,
+                       mm_dtype="auto")
+BEAM_PARTS = ("rows", "merge", "update", "commit")
+# the step whose state the four kernels are timed on: early, while the beams
+# still emit (a random model's beams fill their 64 symbols, then take blank)
+BEAM_TIMED_STEP = 16
+
+
+def near_ties(values, idx, k, vocab):
+    """(B,) True where two neighbours among the first k + 1 of a top-k's
+    ``values`` (sorted, descending) lie within ``TIE_MARGIN``, unless they
+    are equal and of one beam's row (a (B, K * V) selection's index // V;
+    ``vocab`` 0 for the other selections)."""
+    row = idx // vocab if vocab else idx
+    hi, lo = values[..., :-1], values[..., 1:]
+    same_row = (hi == lo) & (row[..., :-1] == row[..., 1:])
+    return (((hi - lo) <= TIE_MARGIN) & (lo > NEG / 2) & ~same_row).any(-1)
+
+
+def beam_kernel_bytes(loop, emitted: int) -> dict:
+    """Each bookkeeping kernel's bytes a step at ``loop``'s state, each read
+    and each write once: the rows kernel the logits, the beams' scalars and
+    its keys; the merge the keys and the scalars and finished store's
+    scalars in and out; the update every buffer it gathers in and out and
+    the encoder rows; the commit the tokens and the ``emitted`` rows' net
+    outputs in and out."""
+    st = loop.state
+    b, k, h = st["dec_ay"].shape
+    n, um, s = st["fin_scores"].shape[1], st["tokens"].shape[2], st["aligns"].shape[2]
+    e = st["dec_ay"].element_size()
+    layers = st["dec_h"].shape[0] if "dec_h" in st else 0
+    vocab = loop.net.config.vocab_size
+    return {"rows": b * k * (vocab * e + 4 + 3 * 8 + k * 8 + 4),
+            "merge": b * k * k * 8 + 2 * b * k * (4 + 4 * 8) + 2 * b * n * (4 + 2 * 8)
+                     + b * k * (4 + 8 + 4 + 4) + b * n * 4,
+            "update": 2 * (b * (k + n) * (um + s) * 8 + b * k * h * e * (2 + 2 * layers))
+                      + 2 * 2 * b * k * h * e,
+            "commit": b * k * 8 + 2 * emitted * (2 + 2 * layers) * h * e}
+
+
+def time_beam_kernels(loop, iters: int = 50) -> dict:
+    """The four bookkeeping kernels' device time a launch (ms, the profiler)
+    from ``loop``'s live state: each round restores the state, then runs the
+    step's selection, update and commit (with the net's outputs of that
+    state); the state is restored after.  The commit's row says how many
+    of the B * K rows emitted (the rows it copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    st, ks, net = loop.state, loop.kernels, loop.net
+    b, k, h = st["dec_ay"].shape
+    saved = {name: x.clone() for name, x in {**st, **ks.scratch}.items()}
+
+    def restore():
+        for name, x in saved.items():
+            (st if name in st else ks.scratch)[name].copy_(x)
+
+    logits = net.joint_from_factors(*(x.view(b * k, h) for x in (
+        ks.scratch["ax_sel"], ks.scratch["gx_sel"], st["dec_ay"], st["dec_gy"])))
+    beam_kernels.select(ks, logits)
+    beam_kernels.update(ks)
+    layers = st["dec_h"].shape[0]
+    hid, (new_h, new_c) = net.predict_step(ks.scratch["tok"].view(b * k), (
+        st["dec_h"].view(layers, b * k, h), st["dec_c"].view(layers, b * k, h)))
+    new_ay, new_gy = net.joint_dec_factors(hid)
+    emitted = int((ks.scratch["tok"] != loop.cfg.blank).sum())
+    nbytes = beam_kernel_bytes(loop, emitted)
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            restore()
+            beam_kernels.select(ks, logits)
+            beam_kernels.update(ks)
+            beam_kernels.commit(ks, new_ay, new_gy, new_h, new_c)
+        torch.cuda.synchronize()
+    restore()
+    ms = {}
+    for e in prof.key_averages():
+        for part in BEAM_PARTS:
+            if e.device_type == DeviceType.CUDA and f"beam_{part}_kernel" in e.key:
+                ms[part] = e.self_device_time_total / e.count / 1e3
+    check(set(ms) == set(BEAM_PARTS) and all(v > 0 for v in ms.values()),
+          f"the profiler timed the four bookkeeping kernels: {ms}")
+    return {part: {"ms": ms[part], **bound(0, nbytes[part], PEAK_BF16),
+                   **({"emitted_rows": emitted} if part == "commit" else {})}
+            for part in BEAM_PARTS}
+
+
+def beam_kernels_each_step(model, enc, enc_lens, cfg) -> dict:
+    """The bookkeeping kernels against the torch body one step at a time
+    from the same state, over a whole search at ``cfg``: each step the
+    kernels' loop takes the torch body's state (and the encoder rows at its
+    time pointers), both run the step, and every utterance whose reference
+    selections had no near tie (``near_ties``) must come out the same:
+    every integer buffer and the net's state and outputs to the bit, the
+    live and finished scores (the whole N-best's) within
+    STEP_RTOL / STEP_ATOL, and the encoder rows that the update kernel
+    gathered equal those at the new pointers.  The four kernels timed at
+    step BEAM_TIMED_STEP; the graphed search timed on both routes.
+    Returns the counts, the worst score difference and the kernels' rows."""
+    dev = enc.device
+    net = model.decode_net(resolve_mm_dtype(cfg.mm_dtype, dev))
+    b, t_max, _ = enc.shape
+    ref = BeamLoop(net, cfg, b, t_max, dev, plain=True)
+    got = BeamLoop(net, cfg, b, t_max, dev)
+    ref.reset(enc, enc_lens)
+    got.reset(enc, enc_lens)
+    ks, ax_all, gx_all = got.kernels, ref.inputs["ax_all"], ref.inputs["gx_all"]
+
+    def at_pointers(t_idx):
+        g = t_idx.clamp(0, t_max - 1)[..., None].expand(-1, -1, ax_all.shape[-1])
+        return ax_all.gather(1, g), gx_all.gather(1, g)
+
+    near = torch.zeros(b, dtype=torch.bool, device=dev)
+    top_k, vocab = beam_module.top_k, net.config.vocab_size
+
+    def recording(x, k):
+        values, idx = top_k(x, min(k + 1, x.shape[-1]))
+        near.logical_or_(near_ties(values, idx, k, vocab if x.shape[-1] % vocab == 0 else 0))
+        return values[..., :k], idx[..., :k]
+
+    steps = compared = 0
+    worst, timed = 0.0, None
+    beam_module.top_k = recording
+    try:
+        while bool(ref.state["running"]):
+            check(steps < ref.max_bodies, "the step-by-step search ends")
+            for name, x in ref.state.items():
+                got.state[name].copy_(x)
+            for name, x in zip(("ax_sel", "gx_sel"), at_pointers(ref.state["t_idx"])):
+                ks.scratch[name].copy_(x)
+            if steps == BEAM_TIMED_STEP:
+                beam_module.top_k = top_k
+                timed = time_beam_kernels(got)
+                beam_module.top_k = recording
+            near.zero_()
+            ref.torch_body()
+            got.kernel_body()
+            ok = ~near
+            for name, x in ref.state.items():
+                y = got.state[name]
+                if x.dim() == 0:
+                    check(torch.equal(x, y), f"beam kernels step {steps}: {name}")
+                    continue
+                x, y = (x[:, ok], y[:, ok]) if name in ("dec_h", "dec_c") else (x[ok], y[ok])
+                if name in ("scores", "fin_scores"):
+                    close = (x - y).abs() <= STEP_ATOL + STEP_RTOL * x.abs()
+                    check(bool(close.all()), f"beam kernels step {steps}: {name} within "
+                          f"{STEP_RTOL} / {STEP_ATOL}: {x[~close][:4]} {y[~close][:4]}")
+                    live = x > NEG / 2
+                    if live.any():
+                        worst = max(worst, (x - y)[live].abs().max().item())
+                else:
+                    check(torch.equal(x, y), f"beam kernels step {steps}: {name}")
+            for name, x in zip(("ax_sel", "gx_sel"), at_pointers(got.state["t_idx"])):
+                check(torch.equal(ks.scratch[name][ok], x[ok]),
+                      f"beam kernels step {steps}: {name} at the new time pointers")
+            compared += int(ok.sum())
+            steps += 1
+    finally:
+        beam_module.top_k = top_k
+    check(compared > 0, "beam kernels step by step: some utterance-step without a near tie")
+    check(timed is not None, f"the search ran past step {BEAM_TIMED_STEP}, where the kernels are "
+          f"timed")
+    graphed = beam_search(model, enc, enc_lens, cfg)
+    n_steps = int(graphed["steps"])
+    plain_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg, _plain=True))
+    kernel_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg))
+    # the torch body's bookkeeping a step: what the kernels' route saves, plus the kernels
+    plain_ms = (plain_s - kernel_s) / n_steps * 1e3 + sum(x["ms"] for x in timed.values())
+    say(f"beam {cfg.beam_size} bookkeeping kernels against the torch body step by step (the "
+        f"decode cells' search: bf16, sm_scale {cfg.sm_scale}, {cfg.max_symbols} symbols; "
+        f"{steps} steps): {compared} of {steps * b} utterance-steps without a near tie (two of a "
+        f"selection's first k + 1 within {TIE_MARGIN}), each the same state, worst score "
+        f"difference {worst:.3e}; kernels a launch at step {BEAM_TIMED_STEP} ("
+        f"{timed['commit']['emitted_rows']} of {b * cfg.beam_size} rows emitted) "
+        f"{({p: round(x['ms'] * 1e3, 2) for p, x in timed.items()})} us (bounds "
+        f"{({p: round(x['bound_ms'] * 1e3, 2) for p, x in timed.items()})} us); graphed search "
+        f"({n_steps} steps) torch body {plain_s:.4f} s, kernels {kernel_s:.4f} s "
+        f"({plain_s / kernel_s:.2f}x): the torch body's bookkeeping about {plain_ms:.3f} ms a step")
+    for part in BEAM_PARTS:
+        timed[part].update(max_abs_err=worst if part in ("rows", "merge") else 0.0,
+                           plain_ms=plain_ms if part == "rows" else None, library_ms=None)
+    return timed
+
+
 def beam_path(device) -> dict:
     """Beam search at the flagship width on the inference batch (beam 8,
     n_best 8, max 200 symbols): the graphed search against the eager loop
@@ -2227,13 +2437,21 @@ def beam_path(device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     beam_s = dp_seconds(lambda: beam_search(model, enc, enc_lens, cfg))
     peak = torch.cuda.max_memory_allocated(device)
+    reset_launches()
     eager = beam_search_eager(model, enc, enc_lens, cfg)
+    launches = beam_kernels.launches()  # an eager search: a launch of each kernel a step
     eager_s = dp_seconds(lambda: beam_search_eager(model, enc, enc_lens, cfg), repeats=1)
     steps = int(graphed["steps"])
     check(same_nbest(beam_search(model, enc, enc_lens, cfg), graphed),
           "beam: two graphed searches give the same bits")
     check(same_nbest(graphed, eager), "beam: graphed = eager (tokens, lens, aligns, scores)")
     check_nbest(graphed, t_out, "beam 8")
+    check(launches["update"] == launches["commit"] == launches["select"] // 2 > steps,
+          f"the eager search launched each bookkeeping kernel once a body: {launches}")
+    kernels = beam_kernels_each_step(model, enc, enc_lens, CELL_BEAM)
+    for part, n in zip(BEAM_PARTS, (launches["select"] // 2, launches["select"] // 2,
+                                    launches["update"], launches["commit"])):
+        kernels[part]["launches"] = n
     say(f"beam {BEAM}, n_best {NBEST}, B={BATCH}, T'={t_out}: graphed {beam_s:.4f} s, eager "
         f"{eager_s:.4f} s ({eager_s / beam_s:.2f}x), {steps} loop steps ({beam_s / steps * 1e3:.3f} "
         f"ms a step graphed); peak memory {peak / 2**30:.3f} GiB; graphed = eager, N-best "
@@ -2276,8 +2494,7 @@ def beam_path(device) -> dict:
     del model, featurizer, enc
     torch.cuda.empty_cache()
     return {"beam_s": beam_s, "beam_eager_s": eager_s, "steps": steps, "greedy_s": greedy_s,
-            "wave_s": wave_s,
-            "bf16_s": bf16_s}
+            "wave_s": wave_s, "bf16_s": bf16_s, "kernels": kernels}
 
 
 @contextlib.contextmanager
@@ -2471,7 +2688,8 @@ def bench_tools_path(device, work: str, full_step_s: float, beam: dict, cli_epoc
 
 
 def profile_beam(device, work: str) -> None:
-    """The profiled graphed beam 8 search, then the FST per-token exact and
+    """The profiled graphed beam 8 search on the torch body and on the
+    bookkeeping kernels (device ops a loop step), then the FST per-token exact and
     walk searches (the bigram of ``fst_path``, its advance cache read from
     its file), last of all phases: with a profile in the beam phase, the
     host-driven work of later phases ran slower than before the decode
@@ -2485,9 +2703,16 @@ def profile_beam(device, work: str) -> None:
         enc = model.encode(feats, feat_lens)
         enc_lens = model.encoder_out_len(feat_lens)
     cfg = BeamConfig(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS)
-    beam_search(model, enc, enc_lens, cfg)  # capture
-    profile(lambda: beam_search(model, enc, enc_lens, cfg)["steps"].item(),
-            f"graphed beam {BEAM} search")
+    per_step = {}
+    for plain in (True, False):  # the torch body, then the bookkeeping kernels
+        what = f"graphed beam {BEAM} search ({'torch body' if plain else 'kernels'})"
+        steps = int(beam_search(model, enc, enc_lens, cfg, _plain=plain)["steps"])  # capture
+        ops = profile(lambda: beam_search(model, enc, enc_lens, cfg, _plain=plain)["steps"].item(),
+                      what, also="beam_")
+        per_step[plain] = ops / steps
+    say(f"device ops a loop step of the graphed beam {BEAM} search (the profile's ops over its "
+        f"{steps} steps, reset and result included): torch body {per_step[True]:.1f}, kernels "
+        f"{per_step[False]:.1f}")
     arpa = os.path.join(work, "lm.arpa")
     tables = compile_arpa(arpa, {f"u{k}": k + 1 for k in range(VOCAB)})
     base = dict(beam_size=BEAM, n_best=NBEST, max_symbols=MAX_SYMBOLS, lm_scale=FST_SCALE,
@@ -3765,6 +3990,10 @@ def main() -> int:
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
                      "(via pika_tpu/models/transformer.py:181)",
          "launches": flash_launches["K4 dq"], **k4["dq"]},
+        *({"name": f"beam_{part}", "route": "cuda", "source": "pika_tpu_torch/csrc/beam_step.cu",
+           "replaces": "none (pika_tpu/decode/beam.py, the loop's body: XLA ops)"
+                       if part == "rows" else "none (with beam_rows)",
+           **lstm_beam["kernels"][part]} for part in BEAM_PARTS),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

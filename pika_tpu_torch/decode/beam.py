@@ -24,6 +24,11 @@ the same body eagerly on the CPU.
   store and never occupy live beam slots; live beams backfill it at the end;
 * softmax temperature ``sm_scale``.
 
+The plain beam (no FST tables) on a CUDA tensor runs its bookkeeping as
+``decode/beam_kernels.py``'s four launches a step, graphed or eager; the
+torch body (``BeamLoop.torch_body``) is their plain version, which the CPU
+and the FST-fusion searches run.  ``BODIES`` counts the bodies run by route.
+
 Every top-k (the K-of-(K*V) and K-of-(K*(m+1)) selections, the FST state
 sets' and the finished-store merges) is a stable descending sort:
 ``jax.lax.top_k`` puts the lower index first among equal values, and ties
@@ -37,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from pika_tpu_torch.decode import beam_kernels
 from pika_tpu_torch.decode.fst import (
     INF,
     fst_advance_min_costs,
@@ -52,6 +58,11 @@ from pika_tpu_torch.utils.dtypes import resolve_mm_dtype
 NEG = -1.0e20
 HASH_MULT = 1000003
 HASH_MASK = 0xFFFFFFFF
+
+# bodies run in Python by route: "kernels" (the plain beam on the card),
+# "plain" (the torch body without an LM), "fst" (the torch body with one); a
+# graphed search runs its body at warm-up and capture, then replays it
+BODIES = {"kernels": 0, "plain": 0, "fst": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +125,8 @@ def _min0(x: torch.Tensor) -> torch.Tensor:
 
 class BeamLoop(DecodeLoop):
     def __init__(self, net: Transducer, cfg: BeamConfig, b: int, t_max: int,
-                 device: torch.device, fst_tables: Optional[dict] = None, fst_start: int = 0):
+                 device: torch.device, fst_tables: Optional[dict] = None, fst_start: int = 0,
+                 plain: bool = False):
         super().__init__()
         mcfg = net.config
         dtype = net.fc2.weight.dtype
@@ -170,6 +182,12 @@ class BeamLoop(DecodeLoop):
             self.state["fst_costs"] = torch.zeros(b, k, s_cap, device=device)
         if self.use_lm and cfg.lm_scale > 0:
             self.gain_per_emit, self.final_gain = self._stop_bound_gains()
+        self.route = ("fst" if self.use_lm else
+                      "kernels" if torch.device(device).type == "cuda" and not plain else "plain")
+        self.kernels = None
+        if self.route == "kernels":
+            self.kernels = beam_kernels.BeamStep(self.state, self.inputs, mcfg.vocab_size,
+                                                 cfg.blank, cfg.sm_scale, cfg.prune_dups)
 
     def _stop_bound_gains(self):
         """The admissible stop bound's two terms, as float32 device scalars
@@ -229,8 +247,45 @@ class BeamLoop(DecodeLoop):
             st["fst_states"][..., 0] = self.fst_start
             st["fst_costs"].fill_(float(INF))
             st["fst_costs"][..., 0] = 0.0
+        if self.kernels is not None:
+            self.kernels.reset()
 
     def body(self) -> None:
+        BODIES[self.route] += 1
+        if self.kernels is not None:
+            self.kernel_body()
+        else:
+            self.torch_body()
+
+    def kernel_body(self) -> None:
+        """The plain beam's step on the card: the net's calls between the
+        bookkeeping kernels (``decode/beam_kernels.py``), which update the
+        state in place under ``running``; ``torch_body`` without an LM is
+        their plain version."""
+        st, net, ks = self.state, self.net, self.kernels
+        b, k, h = st["dec_ay"].shape
+        um = self.cfg.max_symbols
+
+        def rows(x):
+            return x.view(b * k, h)
+
+        logits = net.joint_from_factors(rows(ks.scratch["ax_sel"]), rows(ks.scratch["gx_sel"]),
+                                        rows(st["dec_ay"]), rows(st["dec_gy"]))
+        beam_kernels.select(ks, logits)
+        beam_kernels.update(ks)  # the state now holds the picked beams' buffers
+        new_h = new_c = None
+        if self.is_rnn:
+            layers = st["dec_h"].shape[0]
+            new_hid, (new_h, new_c) = net.predict_step(
+                ks.scratch["tok"].view(b * k),
+                (st["dec_h"].view(layers, b * k, h), st["dec_c"].view(layers, b * k, h)))
+        else:
+            new_hid = net.predict_last(st["tokens"].clamp(min=0).view(b * k, um),
+                                       st["lens"].clamp(max=um).view(b * k))
+        new_ay, new_gy = net.joint_dec_factors(new_hid)
+        beam_kernels.commit(ks, new_ay, new_gy, new_h, new_c)
+
+    def torch_body(self) -> None:
         st, net, cfg, fst = self.state, self.net, self.cfg, self.fst
         ax_all, gx_all, enc_lens = (self.inputs[x] for x in ("ax_all", "gx_all", "enc_lens"))
         b, k, h = st["dec_ay"].shape
@@ -436,7 +491,8 @@ class BeamLoop(DecodeLoop):
         return out
 
 
-def _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check, graphed):
+def _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check, graphed,
+            plain):
     b, t_max, _ = enc_out.shape
     dev = enc_out.device
     dtype = resolve_mm_dtype(cfg.mm_dtype, dev)
@@ -449,9 +505,9 @@ def _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_chec
         if fst_tables["arc_start"].device != dev:
             raise ValueError(f"fst_tables are on {fst_tables['arc_start'].device}, the encoder "
                              f"output on {dev}")
-    key = ("beam", str(dev), b, t_max, cfg, fst_key, fst_start if fst_key else None)
+    key = ("beam", str(dev), b, t_max, cfg, fst_key, fst_start if fst_key else None, plain)
     loop = cached_loop(model, key, dtype,
-                       lambda net: BeamLoop(net, cfg, b, t_max, dev, fst_tables, fst_start))
+                       lambda net: BeamLoop(net, cfg, b, t_max, dev, fst_tables, fst_start, plain))
     loop.run(graphed, steps_per_check, enc_out, enc_lens)
     return loop.result()
 
@@ -459,10 +515,12 @@ def _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_chec
 @torch.no_grad()
 def beam_search(model: Transducer, enc_out: torch.Tensor, enc_lens: torch.Tensor,
                 cfg: BeamConfig, fst_tables: Optional[dict] = None, fst_start: int = 0,
-                steps_per_check: int = STEPS_PER_CHECK) -> dict:
+                steps_per_check: int = STEPS_PER_CHECK, _plain: bool = False) -> dict:
     """Decode a batch of encoder outputs (B, T, H): one CUDA graph of the
     loop's body on the card (captured once per shape, config and LM), the
-    same body eagerly on the CPU.
+    same body eagerly on the CPU.  Without an LM the card's body runs the
+    bookkeeping kernels (``_plain=True``, for the card's tests only, runs
+    the torch body there).
 
     ``fst_tables`` (``FstTables.device_arrays`` on the encoder output's
     device) and ``fst_start`` (``FstTables.start``) turn on FST shallow
@@ -475,17 +533,17 @@ def beam_search(model: Transducer, enc_out: torch.Tensor, enc_lens: torch.Tensor
     ``steps`` is the number of loop steps the search took.
     """
     return _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check,
-                   graphed=enc_out.is_cuda)
+                   graphed=enc_out.is_cuda, plain=_plain)
 
 
 @torch.no_grad()
 def beam_search_eager(model: Transducer, enc_out: torch.Tensor, enc_lens: torch.Tensor,
                       cfg: BeamConfig, fst_tables: Optional[dict] = None, fst_start: int = 0,
-                      steps_per_check: int = STEPS_PER_CHECK) -> dict:
+                      steps_per_check: int = STEPS_PER_CHECK, _plain: bool = False) -> dict:
     """``beam_search`` with the body run eagerly on any device: the
     reference the card's checks hold the graph to."""
     return _search(model, enc_out, enc_lens, cfg, fst_tables, fst_start, steps_per_check,
-                   graphed=False)
+                   graphed=False, plain=_plain)
 
 
 @torch.no_grad()

@@ -108,6 +108,11 @@ def library() -> ctypes.CDLL:
     lib.pika_rnnt_dp_forward.restype = i
     lib.pika_rnnt_dp_backward.argtypes = [i, p] + [p] * 10 + [i] * 3
     lib.pika_rnnt_dp_backward.restype = i
+    lib.pika_beam_select.argtypes = [i, p, p, p, ctypes.c_float]
+    lib.pika_beam_select.restype = i
+    for name in ("pika_beam_update", "pika_beam_commit"):
+        getattr(lib, name).argtypes = [i, p, p, p]
+        getattr(lib, name).restype = i
     lib.pika_cuda_error_string.argtypes = [i]
     lib.pika_cuda_error_string.restype = ctypes.c_char_p
     return lib

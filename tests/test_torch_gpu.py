@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-(K1-K4 and the loss DP's two kernels), the decode loops' CUDA graphs against their eager loops, the LSTM's fused
+(K1-K4, the loss DP's two kernels and the beam's bookkeeping kernels), the
+decode loops' CUDA graphs against their eager loops, the LSTM's fused
 route (cuDNN) against its loop over frames, and the pruned training's
 repeat to the bit.
 
@@ -16,7 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from pika_tpu_torch.decode.beam import BeamConfig, beam_search, beam_search_eager
+from pika_tpu_torch.decode import beam as beam_module
+from pika_tpu_torch.decode import beam_kernels
+from pika_tpu_torch.decode.beam import (BODIES, NEG, BeamConfig, BeamLoop, beam_search,
+                                        beam_search_eager)
 from pika_tpu_torch.decode.fst import _build_tables, fst_advance_sets, init_state_sets
 from pika_tpu_torch.decode.greedy import greedy_decode, greedy_decode_eager
 from pika_tpu_torch.models.lstm import LSTM
@@ -61,6 +65,7 @@ from pika_tpu_torch.ops.rnnt_pruned import (
 )
 from pika_tpu_torch.train.lr import make_optimizer
 from pika_tpu_torch.train.step import FeaturizerConfig, make_featurizer, make_train_step
+from pika_tpu_torch.utils.dtypes import resolve_mm_dtype
 
 pytestmark = pytest.mark.gpu
 # the module itself: the package re-exports a function of the same name
@@ -560,12 +565,174 @@ def _assert_same_nbest(a, b):
 
 @pytest.mark.parametrize("beam", [4, 8])
 def test_beam_graph_matches_eager(cuda_device, beam):
+    """Both run the bookkeeping kernels: two selection launches, one update
+    and one commit in each body run in Python (the graph's warm-up and
+    capture, every eager step)."""
     model, enc, lens = _decode_case(cuda_device)
     cfg = BeamConfig(beam_size=beam, n_best=4, max_symbols=12)
+    bodies, launches = BODIES["kernels"], beam_kernels.launches()
     graphed = beam_search(model, enc, lens, cfg)
     eager = beam_search_eager(model, enc, lens, cfg)
     _assert_same_nbest(graphed, eager)
     assert all(loop.graph is not None for loop in model._decode_loops.values())
+    ran = BODIES["kernels"] - bodies
+    assert ran > int(eager["steps"])
+    assert {k: v - launches[k] for k, v in beam_kernels.launches().items()} == {
+        "select": 2 * ran, "update": ran, "commit": ran}
+
+
+# the bookkeeping kernels against the torch body (``_plain=True``):
+# (net, beam, n_best, prune_dups, mm_dtype, sm_scale, max_symbols); max_symbols
+# 4 fills the token buffers (the full-beam cap); every value of each axis.
+# "rnn" is DECODE_MODEL (V 300, H 128, the LSTM net), "transformer" its
+# transformer prediction net (the re-forward of the tokens the update kernel
+# wrote), "flagship" the decode cells' widths (V 6268, H 1024: a dozen
+# candidates a thread); beam above 8 runs the kernels' wide instantiation
+KERNEL_CASES = [("rnn", 4, 4, True, None, 1.0, 12), ("rnn", 8, 8, True, "auto", 1.2, 12),
+                ("rnn", 4, 8, False, "auto", 1.2, 4), ("rnn", 8, 4, False, None, 1.2, 4),
+                ("rnn", 8, 8, False, "auto", 1.0, 12), ("rnn", 4, 4, True, "auto", 1.2, 4),
+                ("rnn", 8, 4, True, None, 1.2, 12), ("rnn", 4, 8, True, None, 1.0, 4),
+                ("rnn", 16, 16, True, "auto", 1.2, 12), ("rnn", 32, 32, False, None, 1.0, 12),
+                ("rnn", 32, 8, True, "auto", 1.2, 4),
+                ("transformer", 4, 4, True, None, 1.2, 12),
+                ("transformer", 8, 8, False, "auto", 1.0, 4),
+                ("transformer", 16, 32, True, "auto", 1.2, 6),
+                ("transformer", 32, 16, True, None, 1.2, 12),
+                ("flagship", 8, 8, True, "auto", 1.2, 4), ("flagship", 8, 8, True, None, 1.2, 4)]
+# where two of a reference selection's first k + 1 candidates lie this close,
+# the kernels' float32 log-softmax (another order of summation) may pick or
+# order them otherwise.  Equal values of one beam's row are no such tie: the
+# log-softmax maps a row's equal logits to equal values on both sides, and
+# both put the lower index first.
+TIE_MARGIN = 1e-4
+# a step's scores from one state: the log-softmax sums in another order, a
+# few float32 ulps at the scores' magnitude; a whole search's scores
+STEP_RTOL, STEP_ATOL = 1e-6, 1e-5
+SCORE_RTOL = 1e-4
+
+
+def _kernel_net(name):
+    return {"rnn": DECODE_MODEL, "transformer": TRANSFORMER_MODEL,
+            "flagship": dict(DECODE_MODEL, vocab_size=6268, hid_dim=1024, embd_dim=100)}[name]
+
+
+def _near_ties(values, idx, k, vocab):
+    """(B,) True where two neighbours among the first k + 1 of a top-k's
+    ``values`` (sorted, descending) lie within ``TIE_MARGIN``, unless they
+    are equal and of one beam's row (a (B, K * V) selection's index // V;
+    ``vocab`` 0 for the other selections)."""
+    row = idx // vocab if vocab else idx
+    hi, lo = values[..., :-1], values[..., 1:]
+    same_row = (hi == lo) & (row[..., :-1] == row[..., 1:])
+    return (((hi - lo) <= TIE_MARGIN) & (lo > NEG / 2) & ~same_row).any(-1)
+
+
+def _recording_ties(monkeypatch, near, vocab):
+    """Patch the torch body's ``top_k`` to OR each selection's near ties
+    into ``near``."""
+    top_k = beam_module.top_k
+
+    def recording(x, k):
+        values, idx = top_k(x, min(k + 1, x.shape[-1]))
+        near.logical_or_(_near_ties(values, idx, k, vocab if x.shape[-1] % vocab == 0 else 0))
+        return values[..., :k], idx[..., :k]
+
+    monkeypatch.setattr(beam_module, "top_k", recording)
+
+
+def _step_by_step(model, enc, lens, cfg, monkeypatch):
+    """The kernels against the torch body one step at a time from the same
+    state, over a whole search: each step the kernels' loop takes the torch
+    body's state (and the encoder rows at its time pointers), both run the
+    step, and every utterance whose selections had no near tie must come out
+    the same: the integer buffers and the net's state to the bit, the live
+    and finished scores within STEP_RTOL / STEP_ATOL, the encoder rows the
+    update kernel gathered those at the new pointers.  Returns the count of
+    utterance-steps compared."""
+    dev = enc.device
+    net = model.decode_net(resolve_mm_dtype(cfg.mm_dtype, dev))
+    b, t_max, _ = enc.shape
+    ref = BeamLoop(net, cfg, b, t_max, dev, plain=True)
+    got = BeamLoop(net, cfg, b, t_max, dev)
+    ref.reset(enc, lens)
+    got.reset(enc, lens)
+    ks, ax_all, gx_all = got.kernels, ref.inputs["ax_all"], ref.inputs["gx_all"]
+
+    def at_pointers(t_idx):
+        g = t_idx.clamp(0, t_max - 1)[..., None].expand(-1, -1, ax_all.shape[-1])
+        return ax_all.gather(1, g), gx_all.gather(1, g)
+
+    near = torch.zeros(b, dtype=torch.bool, device=dev)
+    compared = steps = 0
+    with monkeypatch.context() as patch:
+        _recording_ties(patch, near, net.config.vocab_size)
+        while bool(ref.state["running"]):
+            assert steps < ref.max_bodies
+            for name, x in ref.state.items():
+                got.state[name].copy_(x)
+            for name, x in zip(("ax_sel", "gx_sel"), at_pointers(ref.state["t_idx"])):
+                ks.scratch[name].copy_(x)
+            near.zero_()
+            ref.torch_body()
+            got.kernel_body()
+            ok = ~near
+            for name, x in ref.state.items():
+                y = got.state[name]
+                if x.dim() == 0:
+                    assert torch.equal(x, y), (steps, name)
+                    continue
+                x, y = (x[:, ok], y[:, ok]) if name in ("dec_h", "dec_c") else (x[ok], y[ok])
+                if name in ("scores", "fin_scores"):
+                    torch.testing.assert_close(y, x, rtol=STEP_RTOL, atol=STEP_ATOL,
+                                               msg=lambda m: f"step {steps} {name}: {m}")
+                else:
+                    assert torch.equal(x, y), (steps, name)
+            for name, x in zip(("ax_sel", "gx_sel"), at_pointers(got.state["t_idx"])):
+                assert torch.equal(ks.scratch[name][ok], x[ok]), (steps, name)
+            compared += int(ok.sum())
+            steps += 1
+    return compared
+
+
+@pytest.mark.parametrize("net,beam,n_best,prune,mm_dtype,sm_scale,max_symbols", KERNEL_CASES)
+def test_beam_kernels_match_the_torch_body(cuda_device, monkeypatch, net, beam, n_best, prune,
+                                           mm_dtype, sm_scale, max_symbols):
+    """Ragged lengths (one utterance of one frame): step by step from the
+    same state (``_step_by_step``), some utterance-step compared; then the
+    graphed search on the kernels against the torch body's: the same
+    tokens, lengths and alignments for each utterance whose search had no
+    near tie, scores within SCORE_RTOL."""
+    model, enc, lens = _decode_case(cuda_device, b=4, t=12, model_cfg=_kernel_net(net))
+    cfg = BeamConfig(beam_size=beam, n_best=n_best, prune_dups=prune, mm_dtype=mm_dtype,
+                     sm_scale=sm_scale, max_symbols=max_symbols)
+    assert _step_by_step(model, enc, lens, cfg, monkeypatch) > 0, "every step had a near tie"
+    near = torch.zeros(4, dtype=torch.bool, device=cuda_device)
+    with monkeypatch.context() as patch:
+        _recording_ties(patch, near, model.config.vocab_size)
+        ref = beam_search_eager(model, enc, lens, cfg, _plain=True)
+    launches = beam_kernels.launches()
+    got = beam_search(model, enc, lens, cfg)
+    assert beam_kernels.launches()["commit"] > launches["commit"]
+    for b in torch.nonzero(~near)[:, 0].tolist():
+        for name in ("tokens", "lens", "aligns", "align_lens"):
+            assert torch.equal(got[name][b], ref[name][b]), (b, name)
+        torch.testing.assert_close(got["scores"][b], ref["scores"][b], rtol=SCORE_RTOL, atol=0)
+    if not near.any():
+        assert torch.equal(got["steps"], ref["steps"])
+
+
+def test_beam_kernels_tie_rule(cuda_device):
+    """A zero joint gives every token of a live beam the same log-prob, so
+    the beams tie across tokens and with each other: the kernels pick the
+    lower flat index, as ``top_k`` does, to the bit."""
+    model, enc, lens = _decode_case(cuda_device)
+    with torch.no_grad():
+        model.fc2.weight.zero_()
+        model.fc2.bias.zero_()
+    for prune in (True, False):
+        cfg = BeamConfig(beam_size=8, n_best=4, max_symbols=6, prune_dups=prune)
+        got = beam_search(model, enc, lens, cfg)
+        _assert_same_nbest(got, beam_search_eager(model, enc, lens, cfg, _plain=True))
 
 
 def test_beam_graph_replays_give_identical_bits(cuda_device):
@@ -678,11 +845,15 @@ def test_fst_beam_graph_matches_eager(cuda_device, fusion, cache_mb):
     assert ("adv_cost" in dev) == bool(cache_mb)
     cfg = BeamConfig(beam_size=8, n_best=4, max_symbols=12, lm_scale=0.8, nonblk_reward=0.3,
                      **fusion)
+    launches, bodies = beam_kernels.launches(), dict(BODIES)
     graphed = beam_search(model, enc, lens, cfg, dev, tables.start)
     _assert_same_nbest(graphed, beam_search_eager(model, enc, lens, cfg, dev, tables.start))
     _assert_same_nbest(graphed, beam_search(model, enc, lens, cfg, dev, tables.start))
     loop = next(iter(model._decode_loops.values()))
     assert loop.graph is not None and loop.fst["arc_weight"] is dev["arc_weight"]
+    # the FST searches keep the torch body: no bookkeeping kernel ran
+    assert loop.route == "fst" and beam_kernels.launches() == launches
+    assert BODIES["fst"] > bodies["fst"] and BODIES["kernels"] == bodies["kernels"]
 
 
 def test_fst_walk_on_card_equals_cpu(cuda_device):
