@@ -2288,9 +2288,9 @@ def time_beam_kernels(loop, iters: int = 50) -> dict:
         ks.scratch["ax_sel"], ks.scratch["gx_sel"], st["dec_ay"], st["dec_gy"])))
     beam_kernels.select(ks, logits)
     beam_kernels.update(ks)
-    layers = st["dec_h"].shape[0]
-    hid, (new_h, new_c) = net.predict_step(ks.scratch["tok"].view(b * k), (
-        st["dec_h"].view(layers, b * k, h), st["dec_c"].view(layers, b * k, h)))
+    rows = {name: st[name].flatten(1, 2) for name in loop.dec_names}
+    hid, new_dec = net.advance(ks.scratch["tok"].view(b * k), rows, st["tokens"].view(b * k, -1),
+                               st["lens"].view(b * k))
     new_ay, new_gy = net.joint_dec_factors(hid)
     emitted = int((ks.scratch["tok"] != loop.cfg.blank).sum())
     nbytes = beam_kernel_bytes(loop, emitted)
@@ -2300,7 +2300,7 @@ def time_beam_kernels(loop, iters: int = 50) -> dict:
             restore()
             beam_kernels.select(ks, logits)
             beam_kernels.update(ks)
-            beam_kernels.commit(ks, new_ay, new_gy, new_h, new_c)
+            beam_kernels.commit(ks, new_ay, new_gy, new_dec)
         torch.cuda.synchronize()
     restore()
     ms = {}
@@ -2371,7 +2371,7 @@ def beam_kernels_each_step(model, enc, enc_lens, cfg) -> dict:
                 if x.dim() == 0:
                     check(torch.equal(x, y), f"beam kernels step {steps}: {name}")
                     continue
-                x, y = (x[:, ok], y[:, ok]) if name in ("dec_h", "dec_c") else (x[ok], y[ok])
+                x, y = (x[:, ok], y[:, ok]) if name in ref.dec_names else (x[ok], y[ok])
                 if name in ("scores", "fin_scores"):
                     close = (x - y).abs() <= STEP_ATOL + STEP_RTOL * x.abs()
                     check(bool(close.all()), f"beam kernels step {steps}: {name} within "

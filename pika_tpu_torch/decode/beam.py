@@ -7,10 +7,9 @@ update order as the JAX ``body``: one CUDA graph of the body on the card,
 the same body eagerly on the CPU.
 
 * per-beam time pointers advance on blank;
-* the prediction net advances only for non-blank beams: the LSTM net by
-  one step from the selected beams' gathered states, the transformer net
-  (no incremental step) by a re-forward of every beam's whole token
-  buffer, (B*K, max_symbols) with its lengths (``predict_last``);
+* the prediction net advances (``Transducer.advance``, over the B*K beams
+  as rows) from the selected beams' gathered state and token buffers, and
+  only the non-blank beams take its output and new state;
 * duplicate partial hypotheses are pruned: rolling hashes (uint32
   arithmetic, carried in int64 and masked to 32 bits) as a prefilter, then
   equal token buffers;
@@ -110,10 +109,11 @@ def _dup_mask(hashes, lens, tokens):
     return (same & earlier[None]).any(dim=2)
 
 
-def _gather_beams(x, idx):
-    """Gather along the beam axis: x (B, K, ...) by idx (B, K')."""
-    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(idx.shape + x.shape[2:])
-    return x.gather(1, idx)
+def _gather_beams(x, idx, dim=1):
+    """Gather along the beam axis ``dim``: x (..., B, K, ...) by idx (B, K')."""
+    lead, rest = x.shape[:dim - 1], x.shape[dim + 1:]
+    full = idx.reshape((1,) * len(lead) + idx.shape + (1,) * len(rest))
+    return x.gather(dim, full.expand(lead + idx.shape + rest))
 
 
 def _min0(x: torch.Tensor) -> torch.Tensor:
@@ -131,7 +131,6 @@ class BeamLoop(DecodeLoop):
         mcfg = net.config
         dtype = net.fc2.weight.dtype
         self.net, self.cfg = net, cfg
-        self.is_rnn = mcfg.decoder_type == "rnn"
         k, n, um, h = cfg.beam_size, cfg.n_best, cfg.max_symbols, mcfg.hid_dim
         self.max_steps = t_max + um
         self.max_bodies = self.max_steps + 1  # the last one sees the loop's end
@@ -143,7 +142,6 @@ class BeamLoop(DecodeLoop):
         self.inputs = {"ax_all": torch.zeros(b, t_max, h, **floats),
                        "gx_all": torch.zeros(b, t_max, h, **floats),
                        "enc_lens": torch.zeros(b, **longs)}
-        layers = mcfg.dec_layers
         self.state = {
             "running": torch.zeros((), dtype=torch.bool, device=device),
             "step": torch.zeros((), **longs),
@@ -162,9 +160,9 @@ class BeamLoop(DecodeLoop):
             "fin_aligns": torch.zeros(b, n, self.max_steps, **longs),
             "fin_align_lens": torch.zeros(b, n, **longs),
         }
-        if self.is_rnn:
-            self.state["dec_h"] = torch.zeros(layers, b, k, h, **floats)
-            self.state["dec_c"] = torch.zeros(layers, b, k, h, **floats)
+        dec = net.dec_state((b, k), device, dtype)
+        self.dec_names = tuple(dec)
+        self.state.update(dec)
         # FST fusion: the tables are inputs the graph reads in place
         self.fst, self.fst_start = fst_tables, fst_start
         self.use_lm = fst_tables is not None
@@ -217,21 +215,6 @@ class BeamLoop(DecodeLoop):
         self.inputs["ax_all"].copy_(ax_all)
         self.inputs["gx_all"].copy_(gx_all)
         self.inputs["enc_lens"].copy_(enc_lens)
-        # every beam consumed SOS (= blank); beam 0 live, the others NEG
-        if self.is_rnn:
-            layers = st["dec_h"].shape[0]
-            zeros = torch.zeros(layers, b * k, h, device=dev, dtype=st["dec_h"].dtype)
-            dec_hid, (h0, c0) = net.predict_step(torch.full((b * k,), cfg.blank, device=dev),
-                                                 (zeros, zeros))
-            st["dec_h"].copy_(h0.reshape(layers, b, k, h))
-            st["dec_c"].copy_(c0.reshape(layers, b, k, h))
-        else:
-            dec_hid = net.predict_last(
-                torch.zeros(b * k, cfg.max_symbols, dtype=torch.long, device=dev),
-                torch.zeros(b * k, dtype=torch.long, device=dev))
-        ay, gy = net.joint_dec_factors(dec_hid)
-        st["dec_ay"].copy_(ay.reshape(b, k, h))
-        st["dec_gy"].copy_(gy.reshape(b, k, h))
         st["running"].fill_(True)
         st["scores"].fill_(NEG)
         st["scores"][:, 0] = 0.0
@@ -239,8 +222,16 @@ class BeamLoop(DecodeLoop):
         for name in ("tokens", "aligns", "fin_tokens", "fin_aligns"):
             st[name].fill_(-1)
         for name in ("step", "t_idx", "lens", "align_lens", "hashes", "fin_lens",
-                     "fin_align_lens"):
+                     "fin_align_lens", *self.dec_names):
             st[name].zero_()
+        # every beam consumed SOS (= blank) from the zero state; beam 0 live, the others NEG
+        dec_hid, dec = net.advance(torch.full((b * k,), cfg.blank, device=dev), self._net_rows(),
+                                   st["tokens"].view(b * k, -1), st["lens"].view(b * k))
+        for name, x in dec.items():
+            st[name].copy_(x.reshape(st[name].shape))
+        ay, gy = net.joint_dec_factors(dec_hid)
+        st["dec_ay"].copy_(ay.reshape(b, k, h))
+        st["dec_gy"].copy_(gy.reshape(b, k, h))
         if self.use_lm:  # every beam's state set is {start: 0}
             st["lm_scores"].zero_()
             st["fst_states"].fill_(-1)
@@ -249,6 +240,11 @@ class BeamLoop(DecodeLoop):
             st["fst_costs"][..., 0] = 0.0
         if self.kernels is not None:
             self.kernels.reset()
+
+    def _net_rows(self) -> dict:
+        """The net's state with the beams as rows, (L, B*K, ...): views of
+        the loop's."""
+        return {name: self.state[name].flatten(1, 2) for name in self.dec_names}
 
     def body(self) -> None:
         BODIES[self.route] += 1
@@ -264,7 +260,6 @@ class BeamLoop(DecodeLoop):
         their plain version."""
         st, net, ks = self.state, self.net, self.kernels
         b, k, h = st["dec_ay"].shape
-        um = self.cfg.max_symbols
 
         def rows(x):
             return x.view(b * k, h)
@@ -273,17 +268,10 @@ class BeamLoop(DecodeLoop):
                                         rows(st["dec_ay"]), rows(st["dec_gy"]))
         beam_kernels.select(ks, logits)
         beam_kernels.update(ks)  # the state now holds the picked beams' buffers
-        new_h = new_c = None
-        if self.is_rnn:
-            layers = st["dec_h"].shape[0]
-            new_hid, (new_h, new_c) = net.predict_step(
-                ks.scratch["tok"].view(b * k),
-                (st["dec_h"].view(layers, b * k, h), st["dec_c"].view(layers, b * k, h)))
-        else:
-            new_hid = net.predict_last(st["tokens"].clamp(min=0).view(b * k, um),
-                                       st["lens"].clamp(max=um).view(b * k))
+        new_hid, new_dec = net.advance(ks.scratch["tok"].view(b * k), self._net_rows(),
+                                       st["tokens"].view(b * k, -1), st["lens"].view(b * k))
         new_ay, new_gy = net.joint_dec_factors(new_hid)
-        beam_kernels.commit(ks, new_ay, new_gy, new_h, new_c)
+        beam_kernels.commit(ks, new_ay, new_gy, new_dec)
 
     def torch_body(self) -> None:
         st, net, cfg, fst = self.state, self.net, self.cfg, self.fst
@@ -420,20 +408,14 @@ class BeamLoop(DecodeLoop):
         keep = emit[..., None]
         new = {}
         # prediction-net advance for emitting beams only
-        if self.is_rnn:
-            layers = st["dec_h"].shape[0]
-            beam_idx = prev_k[None, :, :, None].expand(layers, -1, -1, h)
-            dec_h, dec_c = st["dec_h"].gather(2, beam_idx), st["dec_c"].gather(2, beam_idx)
-            new_hid, (nh, nc) = net.predict_step(
-                tok.reshape(b * k),
-                (dec_h.reshape(layers, b * k, h), dec_c.reshape(layers, b * k, h)))
-            new["dec_h"] = torch.where(keep[None], nh.reshape(layers, b, k, h), dec_h)
-            new["dec_c"] = torch.where(keep[None], nc.reshape(layers, b, k, h), dec_c)
-        else:
-            # a dead beam may take a token past a full buffer (um + 1): its
-            # prefix ends at the buffer's end (the JAX gather fills NaN there)
-            new_hid = net.predict_last(tokens.clamp(min=0).reshape(b * k, um),
-                                       lens.clamp(max=um).reshape(b * k))
+        dec = {name: _gather_beams(st[name], prev_k, dim=2) for name in self.dec_names}
+        new_hid, new_dec = net.advance(tok.reshape(b * k),
+                                       {name: x.flatten(1, 2) for name, x in dec.items()},
+                                       tokens.reshape(b * k, um), lens.reshape(b * k))
+        for name, x in new_dec.items():
+            old = dec[name]
+            new[name] = torch.where(emit.view((1, b, k) + (1,) * (old.dim() - 3)),
+                                    x.reshape(old.shape), old)
         new_ay, new_gy = net.joint_dec_factors(new_hid)
         new.update({
             "step": st["step"] + 1,

@@ -15,6 +15,12 @@ CPU and the FST-fusion searches run):
   encoder factors gathered;
 * ``commit`` (one): the net's outputs where the beam emitted.
 
+The prediction net's state (``Transducer.dec_state``) goes through the
+kernels' fixed slots: ``dec_h`` and ``dec_c`` (the LSTM net's), gathered by
+``update`` and written by ``commit`` from ``new_h`` and ``new_c``
+(``NET_STATE``).  A state tensor without a slot raises: it would go
+ungathered.
+
 Every write is skipped once the device flag ``running`` is false.  On a
 CUDA tensor a wrapper launches or raises; a CPU tensor raises (the CPU runs
 the torch body).  Each wrapper counts its launches in ``.launches``.
@@ -46,6 +52,8 @@ SLOTS = ("running", "step", "scores", "t_idx", "lens", "align_lens", "hashes", "
 DIMS = ("B", "K", "N", "V", "Um", "S", "T", "H", "layers", "blank", "prune", "logits_bf16",
         "elem_bytes")
 NET_DTYPES = (torch.float32, torch.bfloat16)
+# the prediction net's state tensors the kernels carry, each with its commit slot
+NET_STATE = {"dec_h": "new_h", "dec_c": "new_c"}
 
 
 class BeamStep:
@@ -53,10 +61,15 @@ class BeamStep:
     inputs (``BeamLoop.state``, ``BeamLoop.inputs``, read and written in
     place), the step's scratch, and the sizes.  Checked once, when made:
     beam and n_best up to ``MAX_BEAM`` and ``MAX_NBEST``, every tensor
-    contiguous on one CUDA device in the loop's dtypes."""
+    contiguous on one CUDA device in the loop's dtypes, and a slot for
+    every tensor of the state."""
 
     def __init__(self, state: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                  vocab: int, blank: int, sm_scale: float, prune_dups: bool):
+        unknown = [name for name in state if name not in SLOTS]
+        if unknown:
+            raise ValueError(f"beam kernels: no slot for the state's {', '.join(unknown)} (the "
+                             f"net's state may hold {', '.join(NET_STATE)})")
         b, k = state["scores"].shape
         n = state["fin_scores"].shape[1]
         if k > MAX_BEAM or n > MAX_NBEST:
@@ -162,13 +175,19 @@ def update(step: BeamStep) -> None:
 
 
 def commit(step: BeamStep, new_ay: torch.Tensor, new_gy: torch.Tensor,
-           new_h: Optional[torch.Tensor] = None, new_c: Optional[torch.Tensor] = None) -> None:
-    """The prediction net's outputs (B*K, H), and for the LSTM net its state
-    (layers, B*K, H), where the beam emitted: one launch."""
+           new_state: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """The prediction net's outputs (B*K, H) and its new state by name
+    (``Transducer.advance``'s, each (layers, B*K, H)) where the beam
+    emitted: one launch."""
+    slots = {}
+    for name, x in (new_state or {}).items():
+        if name not in NET_STATE:
+            raise ValueError(f"beam commit: no slot for the net's state {name}")
+        slots[NET_STATE[name]] = x
     if new_ay.device.type != "cuda":
         raise ValueError(f"beam commit: unsupported device {new_ay.device}")
     step.launch("commit", cuda_build.library().pika_beam_commit, new_ay=new_ay, new_gy=new_gy,
-                new_h=new_h, new_c=new_c)
+                **slots)
     commit.launches += 1
 
 

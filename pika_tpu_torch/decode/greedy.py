@@ -7,10 +7,9 @@ JAX ``while_loop`` becomes a ``decode.loop.DecodeLoop`` with the same bound
 and update order: one CUDA graph of the body on the card, the same body
 eagerly on the CPU.
 
-The LSTM prediction net advances by one step per emission; the transformer
-net, which has no incremental step, re-forwards each row's whole prefix
-(``Transducer.predict_last`` over the (B, max_symbols) hypothesis buffer)
-and the emitting rows take its output.
+The prediction net advances every row (``Transducer.advance``, from its
+state and its (B, max_symbols) hypothesis buffer) and the emitting rows
+take its output and new state.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ class GreedyLoop(DecodeLoop):
         cfg = net.config
         dtype = net.fc2.weight.dtype
         self.net, self.blank, self.max_symbols = net, blank, max_symbols
-        self.is_rnn = cfg.decoder_type == "rnn"
         self.max_bodies = t_max + max_symbols + 1  # the last one sees the loop's end
         h = cfg.hid_dim
         zeros = dict(device=device, dtype=dtype)
@@ -49,37 +47,33 @@ class GreedyLoop(DecodeLoop):
             "hyps": torch.zeros(b, max_symbols, dtype=torch.long, device=device),
             "hyp_len": torch.zeros(b, dtype=torch.long, device=device),
         }
-        if self.is_rnn:
-            self.state["dec_h"] = torch.zeros(cfg.dec_layers, b, h, **zeros)
-            self.state["dec_c"] = torch.zeros(cfg.dec_layers, b, h, **zeros)
+        dec = net.dec_state((b,), device, dtype)
+        self.dec_names = tuple(dec)
+        self.state.update(dec)
 
     def reset(self, enc_out, enc_lens) -> None:
         net, st, b = self.net, self.state, enc_out.shape[0]
-        dev = enc_out.device
         ax_all, gx_all = net.joint_enc_factors(enc_out.to(net.fc2.weight.dtype))
         self.inputs["ax_all"].copy_(ax_all)
         self.inputs["gx_all"].copy_(gx_all)
         self.inputs["enc_lens"].copy_(enc_lens)
-        # the prediction net first consumes SOS (= blank)
-        if self.is_rnn:
-            zeros = torch.zeros_like(st["dec_h"])
-            dec_hid, (h, c) = net.predict_step(torch.full((b,), self.blank, device=dev),
-                                               (zeros, zeros))
-            st["dec_h"].copy_(h)
-            st["dec_c"].copy_(c)
-        else:  # the empty prefix: SOS alone
-            dec_hid = net.predict_last(
-                torch.zeros(b, self.max_symbols, dtype=torch.long, device=dev),
-                torch.zeros(b, dtype=torch.long, device=dev))
-        ay, gy = net.joint_dec_factors(dec_hid)
-        st["dec_ay"].copy_(ay)
-        st["dec_gy"].copy_(gy)
         st["running"].fill_(True)
         st["step"].zero_()
         st["t_idx"].zero_()
         st["done"].copy_(self.inputs["enc_lens"] <= 0)
         st["hyps"].fill_(-1)
         st["hyp_len"].zero_()
+        for name in self.dec_names:
+            st[name].zero_()
+        # the prediction net first consumes SOS (= blank) from the zero state
+        dec_hid, dec = net.advance(torch.full((b,), self.blank, device=enc_out.device),
+                                   {name: st[name] for name in self.dec_names}, st["hyps"],
+                                   st["hyp_len"])
+        for name, x in dec.items():
+            st[name].copy_(x)
+        ay, gy = net.joint_dec_factors(dec_hid)
+        st["dec_ay"].copy_(ay)
+        st["dec_gy"].copy_(gy)
 
     def body(self) -> None:
         st, net, blank = self.state, self.net, self.blank
@@ -101,12 +95,10 @@ class GreedyLoop(DecodeLoop):
         new = {"step": st["step"] + 1, "t_idx": t_idx, "done": st["done"] | (t_idx >= enc_lens),
                "hyps": hyps, "hyp_len": hyp_len}
         # advance the prediction net only on emitting rows
-        if self.is_rnn:
-            new_hid, (new_h, new_c) = net.predict_step(tok, (st["dec_h"], st["dec_c"]))
-            new["dec_h"] = torch.where(keep[None], new_h, st["dec_h"])
-            new["dec_c"] = torch.where(keep[None], new_c, st["dec_c"])
-        else:
-            new_hid = net.predict_last(hyps.clamp(min=0), hyp_len)
+        new_hid, dec = net.advance(tok, {name: st[name] for name in self.dec_names}, hyps,
+                                   hyp_len)
+        for name, x in dec.items():
+            new[name] = torch.where(emit.view((1, -1) + (1,) * (x.dim() - 2)), x, st[name])
         new_ay, new_gy = net.joint_dec_factors(new_hid)
         new["dec_ay"] = torch.where(keep, new_ay, st["dec_ay"])
         new["dec_gy"] = torch.where(keep, new_gy, st["dec_gy"])

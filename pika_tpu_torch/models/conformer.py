@@ -249,14 +249,24 @@ class ConformerEncoder(nn.Module):
                            device=device) for _ in range(layers))
         self.fc_out = nn.Linear(d_model, output_dim, device=device)
 
+    @classmethod
+    def from_config(cls, cfg, device=None) -> "ConformerEncoder":
+        if cfg.attn_flash or cfg.attn_chunk or cfg.remat:
+            raise ValueError("the conformer encoder takes none of attn_flash, attn_chunk, remat")
+        return cls(cfg.input_dim, cfg.hid_dim, d_model=cfg.conformer_d_model,
+                   layers=cfg.conformer_layers, heads=cfg.conformer_heads,
+                   d_ff=cfg.conformer_d_ff, kernel=cfg.conformer_kernel,
+                   dropout_rate=cfg.conformer_dropout, cheap_dropout=cfg.attn_cheap_dropout,
+                   device=device)
+
     @staticmethod
     def output_length(in_len):
         """Output frame count given input frames (ints or tensors)."""
         return _valid_len(_valid_len(in_len))
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+    def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``lengths`` (B,): the input frames of each row; without them no
+        """``x_len`` (B,): the input frames of each row; without them no
         frame is masked.  Train mode draws dropout from ``generator``."""
         rate = self.dropout_rate if self.training else 0.0
         with span("conformer.subsample"):
@@ -264,9 +274,9 @@ class ConformerEncoder(nn.Module):
         t = x.shape[1]
         pos = relative_position_table(t, self.d_model, x.device).to(x.dtype)
         pad = None
-        if lengths is not None:
+        if x_len is not None:
             pad = (torch.arange(t, device=x.device)[None, :]
-                   >= self.output_length(lengths.to(x.device))[:, None])
+                   >= self.output_length(x_len.to(x.device))[:, None])
         for block in self.blocks:
             x = block(x, pos, pad, generator)
         return self.fc_out(x)

@@ -39,6 +39,11 @@ class ConvTransformerLM(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.linear_out = nn.Linear(d_model, output_dim, device=device)
 
+    @classmethod
+    def from_config(cls, cfg, device=None) -> "ConvTransformerLM":
+        return cls(cfg.embd_dim, cfg.hid_dim, d_model=cfg.dec_d_model, num_layers=cfg.dec_layers,
+                   heads=cfg.dec_heads, d_ff=cfg.dec_d_ff, dropout_rate=cfg.dropout, device=device)
+
     def forward(self, emb: torch.Tensor, pad_positions: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """emb (B, U, E) embedded tokens; pad_positions (B, U) bool, True at
@@ -55,3 +60,12 @@ class ConvTransformerLM(nn.Module):
             out = torch.relu(conv(padded).transpose(1, 2))
             out = getattr(self, f"transformer_{i}")(out, mask=mask, generator=generator)
         return self.linear_out(self.layer_norm(out))
+
+    def zero_state(self, lead: tuple, device, dtype) -> dict:
+        return {}
+
+    def advance(self, model, tok, state, tokens, lens):
+        """The output after each row's whole prefix.  A dead beam may take
+        a token past a full buffer (lens = Um + 1): its prefix ends at the
+        buffer's end (the JAX gather fills NaN there)."""
+        return model.predict_last(tokens.clamp(min=0), lens.clamp(max=tokens.shape[1])), {}

@@ -10,8 +10,9 @@ outputs there are 0 (the reference's packed sequences); the backward
 direction reverses each sequence within its length.  In train mode,
 dropout of ``dropout`` acts between layers, never after the last one, with
 masks drawn from the generator passed to ``forward``.  The prediction net
-runs it unidirectional and unmasked; the transducer's rnn encoder, the LAS
-encoder and downsampler masked, bidirectional where configured.
+(``LSTMPredictionNet``) runs it unidirectional and unmasked; the
+transducer's rnn encoder (``RNNEncoder``), the LAS encoder and downsampler
+masked, bidirectional where configured.
 
 On a CUDA tensor ``forward`` runs each layer as one fused call of ATen's
 LSTM (cuDNN for float32; ``forward_fused``): both directions of a layer in
@@ -261,3 +262,43 @@ def lstm_stack_step(lstm: LSTM, x, h, c):
         new_c.append(c_k)
         inp = h_k
     return inp, torch.stack(new_h), torch.stack(new_c)
+
+
+class RNNEncoder(LSTM):
+    """The transducer's ``rnn`` encoder: masked by ``x_len`` (outputs 0 past
+    each length), no subsampling."""
+
+    @classmethod
+    def from_config(cls, cfg, device=None) -> "RNNEncoder":
+        return cls(cfg.input_dim, cfg.hid_dim, cfg.enc_layers, cfg.dropout,
+                   bidirectional=cfg.brnn, device=device)
+
+    def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(x, generator, lengths=x_len)[0]
+
+    @staticmethod
+    def output_length(x_len):
+        return x_len
+
+
+class LSTMPredictionNet(LSTM):
+    """The transducer's ``rnn`` prediction net: it carries (h, c) from token
+    to token and steps by ``Transducer.predict_step``."""
+
+    @classmethod
+    def from_config(cls, cfg, device=None) -> "LSTMPredictionNet":
+        return cls(cfg.embd_dim, cfg.hid_dim, cfg.dec_layers, cfg.dropout, device=device)
+
+    def forward(self, emb: torch.Tensor, pad_positions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``pad_positions`` goes unread: the LSTM is causal."""
+        return super().forward(emb, generator)[0]
+
+    def zero_state(self, lead: tuple, device, dtype) -> dict:
+        shape = (self.num_layers, *lead, self.hidden_size)
+        return {name: torch.zeros(shape, device=device, dtype=dtype) for name in ("dec_h", "dec_c")}
+
+    def advance(self, model, tok, state, tokens, lens):
+        hid, (h, c) = model.predict_step(tok, (state["dec_h"], state["dec_c"]))
+        return hid, {"dec_h": h, "dec_c": c}

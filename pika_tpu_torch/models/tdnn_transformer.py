@@ -95,6 +95,13 @@ class TDNNTransformerEncoder(nn.Module):
         self.bn_final = nn.BatchNorm1d(nhid, eps=BN_EPS, device=device)
         self.fc_out = nn.Linear(nhid, output_dim, device=device)
 
+    @classmethod
+    def from_config(cls, cfg, device=None) -> "TDNNTransformerEncoder":
+        return cls(cfg.input_dim, cfg.hid_dim, cfg.tdnn_nhid, cfg.tdnn_layers,
+                   transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
+                   attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
+                   remat=cfg.remat, device=device)
+
     def _dilations_strides(self):
         dil = [1] * 3 + [3] * (self.tdnn_layers - 4) + [3]
         stride = [1] * (self.tdnn_layers - 1) + [4]
@@ -114,9 +121,11 @@ class TDNNTransformerEncoder(nn.Module):
         dil, _ = self._dilations_strides()
         return sum(2 * d for d in dil)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, input_dim) -> (B, T', output_dim); dropout masks in train
-        mode come from ``generator``."""
+        mode come from ``generator``.  ``x_len`` goes unread: the encoder
+        sees the padded frames, as the JAX encoder does."""
         g = self.moments_group
         x = _bn(torch.relu(self.fc_in(x)), self.bn_in, g)
         t_layer = 0

@@ -12,10 +12,23 @@ prepended to the labels before the prediction net.
 ``attn_chunk``, ``attn_cheap_dropout`` and ``remat`` are the encoder's
 (``models/tdnn_transformer.py``).
 
-The ``rnn`` encoder (``encoder_type="rnn"``, the JAX package's default) is
-an ``enc_layers`` LSTM of width ``hid_dim`` over the frames, bidirectional
-with ``brnn`` (half the width each way), masked by the frame lengths; it
-does not subsample, so ``encoder_out_len`` is the identity.
+The parts are found by type in ``ENCODERS`` (``encoder_type``) and
+``PREDICTION_NETS`` (``decoder_type``); each is a module with a
+``from_config(cfg, device)`` constructor, and the transducer reaches it only
+through one interface:
+
+* an encoder: ``forward(x, x_len, generator) -> (B, T', H)`` and
+  ``output_length(x_len)``;
+* a prediction net: ``forward(emb, pad_positions, generator) -> (B, U, H)``
+  over embedded labels, ``zero_state(lead, device, dtype)`` and
+  ``advance(model, tok, state, tokens, lens)``, which the decode loops
+  reach through ``Transducer.dec_state`` and ``Transducer.advance``.
+
+The ``rnn`` encoder (``encoder_type="rnn"``, the JAX package's default;
+``models/lstm.py:RNNEncoder``) is an ``enc_layers`` LSTM of width
+``hid_dim`` over the frames, bidirectional with ``brnn`` (half the width
+each way), masked by the frame lengths; it does not subsample, so
+``encoder_out_len`` is the identity.
 
 The ``conformer`` encoder (``encoder_type="conformer"``,
 ``models/conformer.py``) has ``conformer_layers`` blocks of
@@ -30,8 +43,9 @@ arXiv:2005.08100, Table 1.  It takes none of ``attn_flash``,
 The ``transformer`` prediction net (``decoder_type="transformer"``) is a
 ``ConvTransformerLM`` of ``dec_layers`` layers (``dec_d_model``,
 ``dec_heads``, ``dec_d_ff``) over the embedded labels, masked causally and
-by the label lengths.  It has no incremental step: the decode loops take
-``predict_last``, a full re-forward of each prefix.
+by the label lengths.  It has no incremental step: its ``advance`` is
+``predict_last``, a full re-forward of each prefix.  The ``rnn`` net
+(``models/lstm.py:LSTMPredictionNet``) advances by ``predict_step``.
 
 ``simple_joint`` adds the pruned loss's two linear heads ``simple_am`` and
 ``simple_lm`` (``simple_factors``; ``ops/rnnt_pruned.py``); the decoders
@@ -51,7 +65,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,7 +73,7 @@ from torch import nn
 from pika_tpu_torch.device import resolve_device
 from pika_tpu_torch.models.conformer import ConformerEncoder, RelPositionAttention
 from pika_tpu_torch.models.conv_transformer_lm import ConvTransformerLM
-from pika_tpu_torch.models.lstm import LSTM, lstm_stack_step
+from pika_tpu_torch.models.lstm import LSTM, LSTMPredictionNet, RNNEncoder, lstm_stack_step
 from pika_tpu_torch.models.tdnn_transformer import TDNNTransformerEncoder
 from pika_tpu_torch.utils.profiling import span
 
@@ -103,38 +117,28 @@ class TransducerConfig:
         return self.vocab_size
 
 
+ENCODERS = {"rnn": RNNEncoder, "tdnn_transformer": TDNNTransformerEncoder,
+            "conformer": ConformerEncoder}
+PREDICTION_NETS = {"rnn": LSTMPredictionNet, "transformer": ConvTransformerLM}
+
+
+def _part(table: dict, field: str, name: str):
+    if name not in table:
+        raise ValueError(f"unknown {field} {name!r}")
+    return table[name]
+
+
 class Transducer(nn.Module):
     def __init__(self, config: TransducerConfig, device=None):
         super().__init__()
         cfg = config
-        if cfg.encoder_type not in ("rnn", "tdnn_transformer", "conformer"):
-            raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
-        if cfg.encoder_type == "conformer" and (cfg.attn_flash or cfg.attn_chunk or cfg.remat):
-            raise ValueError("the conformer encoder takes none of attn_flash, attn_chunk, remat")
+        encoder = _part(ENCODERS, "encoder_type", cfg.encoder_type)
+        decoder = _part(PREDICTION_NETS, "decoder_type", cfg.decoder_type)
         self.config = cfg
         h = cfg.hid_dim
-        if cfg.encoder_type == "rnn":
-            self.encoder = LSTM(cfg.input_dim, h, cfg.enc_layers, cfg.dropout,
-                                bidirectional=cfg.brnn, device=device)
-        elif cfg.encoder_type == "conformer":
-            self.encoder = ConformerEncoder(
-                cfg.input_dim, h, d_model=cfg.conformer_d_model, layers=cfg.conformer_layers,
-                heads=cfg.conformer_heads, d_ff=cfg.conformer_d_ff, kernel=cfg.conformer_kernel,
-                dropout_rate=cfg.conformer_dropout, cheap_dropout=cfg.attn_cheap_dropout,
-                device=device)
-        else:
-            self.encoder = TDNNTransformerEncoder(
-                cfg.input_dim, h, cfg.tdnn_nhid, cfg.tdnn_layers,
-                transformer_dropout=cfg.tdnn_transformer_dropout, attn_flash=cfg.attn_flash,
-                attn_chunk=cfg.attn_chunk, attn_cheap_dropout=cfg.attn_cheap_dropout,
-                remat=cfg.remat, device=device)
+        self.encoder = encoder.from_config(cfg, device)
         self.embed = nn.Embedding(cfg.vocab_size + 1, cfg.embd_dim, device=device)
-        if cfg.decoder_type == "rnn":
-            self.decoder = LSTM(cfg.embd_dim, h, cfg.dec_layers, cfg.dropout, device=device)
-        else:
-            self.decoder = ConvTransformerLM(
-                cfg.embd_dim, h, d_model=cfg.dec_d_model, num_layers=cfg.dec_layers,
-                heads=cfg.dec_heads, d_ff=cfg.dec_d_ff, dropout_rate=cfg.dropout, device=device)
+        self.decoder = decoder.from_config(cfg, device)
         self.fc1_x = nn.Linear(h, h, bias=False, device=device)
         self.fc1_y = nn.Linear(h, h, device=device)
         self.gate_x = nn.Linear(h, h, bias=False, device=device)
@@ -152,15 +156,9 @@ class Transducer(nn.Module):
         the padded frames, as the JAX encoder does.  Train mode draws
         dropout masks from ``generator``."""
         with span("encoder"):
-            if self.config.encoder_type == "rnn":
-                return self.encoder(x, generator, lengths=x_len)[0]
-            if self.config.encoder_type == "conformer":
-                return self.encoder(x, x_len, generator)
-            return self.encoder(x, generator=generator)
+            return self.encoder(x, x_len, generator)
 
     def encoder_out_len(self, x_len):
-        if self.config.encoder_type == "rnn":
-            return x_len
         return self.encoder.output_length(x_len)
 
     def predict(self, y: torch.Tensor, y_len: Optional[torch.Tensor] = None,
@@ -177,9 +175,7 @@ class Transducer(nn.Module):
                 pad_pos = torch.arange(y_in.shape[1], device=y.device)[None, :] > y_len[:, None]
                 y_in = torch.where(pad_pos, pad_id, y_in)
             emb = self.embed(y_in.clamp(0, pad_id).long())
-            if self.config.decoder_type == "rnn":
-                return self.decoder(emb, generator)[0]
-            return self.decoder(emb, pad_positions=pad_pos, generator=generator)
+            return self.decoder(emb, pad_pos, generator)
 
     def predict_step(self, y_tok: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
         """One incremental step of the LSTM prediction net: y_tok (B,),
@@ -194,6 +190,24 @@ class Transducer(nn.Module):
         included).  The transformer net's decode step: a full re-forward."""
         dec = self.predict(tokens, lens)
         return dec.gather(1, lens.long()[:, None, None].expand(-1, 1, dec.shape[-1]))[:, 0]
+
+    def dec_state(self, lead: tuple, device, dtype) -> Dict[str, torch.Tensor]:
+        """The state the prediction net carries from token to token, zero:
+        each tensor (L, *lead, ...), its rows at the dimensions ``lead``
+        names.  The LSTM's ``dec_h`` and ``dec_c`` (layers, *lead, H); none
+        for the transformer net, whose state is the loops' token buffer."""
+        return self.decoder.zero_state(lead, device, dtype)
+
+    def advance(self, tok: torch.Tensor, state: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                lens: torch.Tensor):
+        """R rows one token forward: tok (R,); ``state`` as ``dec_state``'s
+        at lead (R,); tokens (R, Um), the hypotheses with ``tok`` written,
+        -1 past their lengths lens (R,) -> (out (R, H), new state).  A
+        search starts from the zero state, the blank (SOS) and empty
+        prefixes.  The LSTM net reads ``tok`` and ``state``
+        (``predict_step``), the transformer ``tokens`` and ``lens``
+        (``predict_last``)."""
+        return self.decoder.advance(self, tok, state, tokens, lens)
 
     def joint_factors(self, enc_out: torch.Tensor, dec_out: torch.Tensor):
         """(ax, gx) over T and (ay, gy) over U+1 for the fused loss."""

@@ -1,6 +1,6 @@
 """A/B timing of builds of K4's kernels on one card.
 
-    python -m pika_tpu_torch.ops.flash_attention_ab A.cu B.cu [...]
+    python -m pika_tpu_torch.tools.flash_attention_ab A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` with one change; a
 header (``*.cuh``) beside it is used, else the package's is copied there.  Each

@@ -1,7 +1,7 @@
 """A/B timing of builds of the joint's backward (K2 and K3) on one card, and
 a profile of the joint kernels.
 
-    python -m pika_tpu_torch.ops.joint_channels_bwd_w_ab [A.cu B.cu ...]
+    python -m pika_tpu_torch.tools.joint_bwd_ab [A.cu B.cu ...]
 
 Each argument is a copy of ``csrc/joint_bwd.cu`` with one change; a header
 (``*.cuh``) beside it is used, else the package's is copied there.  Each is
@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 from pika_tpu_torch.ops import cuda_build, rnnt_kernels
-from pika_tpu_torch.ops.flash_attention_ab import build, time_ms
+from pika_tpu_torch.tools.flash_attention_ab import build, time_ms
 
 SHAPE = (32, 239, 41, 1024, 6268)  # B, T', U+1, H, V of bench.py's step
 BOTH = rnnt_kernels.PART_K2 | rnnt_kernels.PART_K3

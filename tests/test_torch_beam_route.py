@@ -78,6 +78,21 @@ def test_beam_step_raises_on_cpu_tensors_and_past_the_maximum(beam_size, n_best,
         beam_kernels.BeamStep(loop.state, loop.inputs, MODEL["vocab_size"], 0, 1.0, True)
 
 
+@pytest.mark.parametrize("wrapper", ["BeamStep", "commit"])
+def test_kernels_raise_on_net_state_without_a_slot(wrapper):
+    """The kernels carry the net's state in fixed slots (``dec_h``,
+    ``dec_c``): a state tensor without one would go ungathered, so the
+    wrappers raise, on any device."""
+    loop = _loop()
+    extra = torch.zeros_like(loop.state["dec_h"])
+    x = torch.zeros(12, MODEL["hid_dim"])
+    call = {"BeamStep": lambda: beam_kernels.BeamStep(
+                dict(loop.state, dec_k=extra), loop.inputs, MODEL["vocab_size"], 0, 1.0, True),
+            "commit": lambda: beam_kernels.commit(None, x, x, {"dec_k": extra})}[wrapper]
+    with pytest.raises(ValueError, match="no slot for the .* dec_k"):
+        call()
+
+
 @pytest.mark.parametrize("wrapper", ["select", "commit"])
 def test_wrappers_raise_on_cpu_tensors(wrapper):
     x = torch.zeros(12, MODEL["hid_dim"])

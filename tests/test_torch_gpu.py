@@ -681,7 +681,7 @@ def _step_by_step(model, enc, lens, cfg, monkeypatch):
                 if x.dim() == 0:
                     assert torch.equal(x, y), (steps, name)
                     continue
-                x, y = (x[:, ok], y[:, ok]) if name in ("dec_h", "dec_c") else (x[ok], y[ok])
+                x, y = (x[:, ok], y[:, ok]) if name in ref.dec_names else (x[ok], y[ok])
                 if name in ("scores", "fin_scores"):
                     torch.testing.assert_close(y, x, rtol=STEP_RTOL, atol=STEP_ATOL,
                                                msg=lambda m: f"step {steps} {name}: {m}")

@@ -154,6 +154,42 @@ def test_predict_padded_labels(tiny, rng):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("decoder_type", ["rnn", "transformer"])
+def test_advance_from_dec_state(decoder_type):
+    """``advance`` from ``dec_state`` is the net's own step on the same
+    inputs, bit for bit, two tokens running: ``predict_step`` for the LSTM
+    net, ``predict_last`` for the transformer net (a length past the buffer
+    reads as the buffer's, a dead beam's); every state tensor is
+    (L, *lead, H) at the rows' lead."""
+    cfg = transducer_pt.TransducerConfig(**dict(TINY, decoder_type=decoder_type, dec_d_model=8,
+                                                dec_heads=2, dec_d_ff=16))
+    pt = transducer_pt.init_transducer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    lead, um = (3, 2), 5
+    state = pt.dec_state(lead, "cpu", torch.float32)
+    assert set(state) == ({"dec_h", "dec_c"} if decoder_type == "rnn" else set())
+    for x in state.values():
+        assert x.shape == (TINY["dec_layers"], *lead, TINY["hid_dim"]) and not x.any()
+    rows = {name: x.flatten(1, 2) for name, x in state.items()}
+    lens = torch.tensor([0, 1, 3, 5, 6, 2])
+    tokens = torch.randint(1, TINY["vocab_size"], (6, um), generator=g)
+    with torch.no_grad():
+        for tok in torch.randint(0, TINY["vocab_size"], (2, 6), generator=g):
+            buf = torch.where(torch.arange(um) < lens[:, None], tokens, -1)
+            out, new = pt.advance(tok, rows, buf, lens)
+            if decoder_type == "rnn":
+                ref, (h, c) = pt.predict_step(tok, (rows["dec_h"], rows["dec_c"]))
+                ref_state = {"dec_h": h, "dec_c": c}
+            else:
+                ref, ref_state = pt.predict_last(buf, lens.clamp(max=um)), {}
+            assert torch.equal(out, ref)
+            assert new.keys() == ref_state.keys()
+            for name, x in new.items():
+                assert x.shape == (TINY["dec_layers"], 6, TINY["hid_dim"])
+                assert torch.equal(x, ref_state[name]), name
+            rows, lens = new, (lens + 1).clamp(max=um + 1)
+
+
 def test_joint(tiny, rng):
     model, v, pt = tiny
     enc = rng.standard_normal((2, 5, 16)).astype(np.float32)
@@ -191,6 +227,20 @@ def test_unported_options_raise():
     model = transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, encoder_type="rnn",
                                                                            brnn=True)))
     assert model.encoder.dirs == 2
+
+
+@pytest.mark.parametrize("options,match", [
+    (dict(encoder_type="lstm"), "unknown encoder_type 'lstm'"),
+    (dict(decoder_type="lstm"), "unknown decoder_type 'lstm'"),
+    (dict(encoder_type="conformer", attn_flash=True), "takes none of"),
+    (dict(encoder_type="conformer", attn_chunk=64), "takes none of"),
+    (dict(encoder_type="conformer", remat=True), "takes none of"),
+])
+def test_part_tables_raise(options, match):
+    """A part type missing from ``ENCODERS`` or ``PREDICTION_NETS``, and the
+    conformer's ``from_config`` given an option of the TDNN encoder's, raise."""
+    with pytest.raises(ValueError, match=match):
+        transducer_pt.Transducer(transducer_pt.TransducerConfig(**dict(TINY, **options)))
 
 
 def test_init_is_seeded():
